@@ -28,14 +28,16 @@ same-machine entries, because XLA bakes tuning attributes (+prefer-no-
 scatter/+prefer-no-gather) into the compile feature list and then compares
 against cpuid, which never reports tuning attrs.  Treat the warning as real
 only when actual ISA bits (avx512*, amx-*) differ — with the AVX2 pin those
-bits can no longer appear in entries at all.  TPU-backend caches
-(.jax_cache) hold TPU binaries and don't need any of this.
+bits can no longer appear in entries at all.  The accelerator cache
+(:func:`compile_cache_dir`) holds GPU binaries and doesn't need any of this.
 """
 
 import hashlib
 import os
 import platform
 import re
+
+_REPO = os.path.dirname(os.path.abspath(__file__))
 
 #: XLA:CPU codegen cap for every persistent-cached CPU run (tests, dryrun).
 #: AVX2 is the portable baseline across the harness's machine pool.
@@ -91,7 +93,7 @@ def verify_cache_dir(path: str) -> str:
 
 def host_cache_dir(base: str) -> str:
     """``base`` dir suffixed with the host fingerprint, e.g.
-    ``/root/repo/.jax_cache_cpu-1a2b3c4d5e``."""
+    ``<checkout>/.jax_cache_cpu-1a2b3c4d5e``."""
     return f"{base.rstrip('/')}-{host_tag()}"
 
 
@@ -101,9 +103,8 @@ def cpu_cache_dir() -> str:
     Base name v2: v1 dirs hold pre-ISA-pin entries with host-specific
     codegen; they must never be candidates again.
     """
-    repo = os.path.dirname(os.path.abspath(__file__))
     return verify_cache_dir(
-        host_cache_dir(os.path.join(repo, ".jax_cache_cpu2")))
+        host_cache_dir(os.path.join(_REPO, ".jax_cache_cpu2")))
 
 
 def pin_cpu_isa(environ=os.environ) -> None:
@@ -112,3 +113,22 @@ def pin_cpu_isa(environ=os.environ) -> None:
     flags = environ.get("XLA_FLAGS", "")
     if "--xla_cpu_max_isa" not in flags:
         environ["XLA_FLAGS"] = (flags + " " + ISA_PIN).strip()
+
+
+def compile_cache_dir(environ=os.environ) -> str:
+    """The accelerator compile cache: ``$JAX_COMPILATION_CACHE_DIR`` when it
+    is set, else ``<checkout>/.jax_cache``.  The path is part of the cache
+    key, so it is derived from this file's location and nothing else."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _REPO, ".jax_cache")
+
+
+def use_compile_cache(environ=os.environ) -> str:
+    """Point JAX's persistent cache at :func:`compile_cache_dir`.  When the
+    variable is set JAX reads it itself, and nothing else is set."""
+    path = compile_cache_dir(environ)
+    if not environ.get("JAX_COMPILATION_CACHE_DIR"):
+        import jax
+
+        jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -1,4 +1,4 @@
-/* gooey_tpu.h — C ABI for the TPU-native gooey engine.
+/* gooey_tpu.h — C ABI for the batched JAX gooey engine.
  *
  * Behavioral reference: src/ffi.rs (the `gooey_engine_*` surface the iOS
  * host compiles against; constants at ffi.rs:1548-1970).  The native shim

@@ -1,9 +1,9 @@
-"""libgooey-tpu: a TPU-native audio synthesis framework.
+"""libgooey-tpu: a batched JAX audio synthesis framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of gooey-audio/libgooey
-(reference: /root/reference, a pure-Rust single-audio-thread synthesis engine).
+A ground-up JAX/XLA rebuild of the capabilities of gooey-audio/libgooey
+(a pure-Rust single-audio-thread synthesis engine).
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
 * **Voices are the batch axis.** All per-voice synth state lives in pytrees of
   ``[V, ...]`` arrays.  The reference's sequential ``for voice in ...`` loops
@@ -15,8 +15,9 @@ Architecture (TPU-first, not a port):
 
   1. *stateless time-based math* (oscillators, envelopes, pan, waveshaping)
      — pure vectorized ops over ``[V, B]``;
-  2. *linear recurrences* (one-pole smoothers/filters, SVF, biquads)
-     — closed forms and blocked associative scans (``ops.scan``);
+  2. *recurrences* (one-pole smoothers/filters, SVF, biquads, nonlinear
+     loops) — closed forms, blocked associative scans, and sample-
+     sequential loops (``ops.scan``, ``ops.recurrence``);
   3. *delay-line systems* (delays, reverb tanks, sample playback)
      — HBM ring buffers with per-block gather/scatter.
 
@@ -25,7 +26,7 @@ Architecture (TPU-first, not a port):
   compiles each block's decisions into dense event arrays (trigger offsets,
   velocities, notes) consumed by masked device code.
 * **The mix is a matmul.** Voice→bus mixing with per-voice equal-power pan
-  gains is a ``[2, V] @ [V, B]`` contraction on the MXU.
+  gains is a ``[2, V] @ [V, B]`` contraction.
 
 Reference layer map and component inventory: see SURVEY.md at the repo root.
 """

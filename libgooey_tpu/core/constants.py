@@ -19,8 +19,8 @@ DEFAULT_SMOOTH_TIME_MS = 15.0
 SMOOTHER_SETTLE_EPS = 1e-4
 
 #: Denormal flush threshold used throughout the reference DSP
-#: (e.g. src/effects/plate_reverb.rs:90-95).  TPUs flush denormals in
-#: hardware, but we keep the constant for parity in explicit guards.
+#: (e.g. src/effects/plate_reverb.rs:90-95), kept for parity in explicit
+#: guards.
 DENORMAL_EPS = 1e-15
 
 # --- capacity constants (reference ABI) ---

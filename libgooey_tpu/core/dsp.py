@@ -3,11 +3,11 @@
 Behavioral reference: src/frame.rs (equal-power pan / downmix) and
 src/utils/mod.rs (tuning_to_multiplier, cubic_interpolate, raised_sine_window).
 All functions are pure, shape-polymorphic jnp ops, usable inside jit/vmap and
-Pallas kernels alike.
+kernels alike.
 
 Stereo convention: this framework keeps the channel axis *leading* —
 ``[2, ...]`` — so the trailing (lane) axis stays the long sample/voice axis
-for TPU tiling.  A "stereo frame stream" is an array of shape ``[2, B]``.
+for the device layout.  A "stereo frame stream" is an array of shape ``[2, B]``.
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ def normalize(value, lo, hi):
 def flush_denormals(x, eps=1e-15):
     """Flush tiny values to zero, mirroring the reference's denormal guards.
 
-    On TPU this is mostly about matching reference behavior in feedback loops
+    This is mostly about matching reference behavior in feedback loops
     (e.g. src/filters/resonant_lowpass.rs:55-60 flushes |v2| < 1e-15).
     """
     return jnp.where(jnp.abs(x) < eps, 0.0, x)

@@ -2,7 +2,7 @@
 
 The reference's `Envelope` (src/envelope.rs) is *time-based*: amplitude is a
 closed-form function of seconds-since-trigger, not a per-sample recursion.
-That maps perfectly onto the TPU: we evaluate the whole ``[V, B]`` block of
+That maps perfectly onto a batched device: we evaluate the whole ``[V, B]`` block of
 elapsed times in one vectorized expression — no scan needed.
 
 Phases (reference src/envelope.rs:154-210):

@@ -10,7 +10,7 @@ The reference uses three RNG styles (all deterministic and resettable):
 * granulator — sequential XorShift32 stepped at grain-spawn control events
   (src/instruments/granulator.rs:833-867), i.e. host-rate, not audio-rate.
 
-A TPU-native design cannot afford sequential audio-rate RNG state, so the
+A batched device design cannot afford sequential audio-rate RNG state, so the
 device-side white sources here are **counter-based**: a stateless integer mix
 of ``(seed, counter)`` where the counter is samples-since-trigger.  This
 preserves every behavioral contract the reference tests assert (determinism,

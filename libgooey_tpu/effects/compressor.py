@@ -12,7 +12,7 @@ Behavioral reference: src/effects/compressor.rs (561 LoC).
 * external sidechain: the detector tracks `sidechain` while gain applies to
   `input` (process_with_sidechain, compressor.rs:230-247).
 
-TPU mapping: the detector's attack/release switch is the only nonlinear
+Block mapping: the detector's attack/release switch is the only nonlinear
 recurrence — a short sequential scan over the (independent) sidechain; the
 gain smoother and DC blocker are linear scans; everything else vectorizes.
 """
@@ -36,11 +36,6 @@ FRAC_2_PI = float(2.0 / np.pi)
 PARAMS = ("threshold_db", "ratio", "attack_ms", "release_ms", "mix")
 P_THRESH, P_RATIO, P_ATTACK, P_RELEASE, P_MIX = range(5)
 RANGES = ((-60.0, 0.0), (1.0, 20.0), (0.1, 100.0), (5.0, 1000.0), (0.0, 1.0))
-
-#: "auto" -> fused Pallas kernels on TPU (SMEM scalar loop for the
-#: attack/release detector + one vector kernel for knee gain, tube
-#: coloring, DC and mix; ops/pallas_fx.py), XLA scans elsewhere.
-IMPL = "auto"
 
 
 class CompressorState(NamedTuple):
@@ -77,6 +72,16 @@ def gain_reduction_db(over_db, ratio):
     )
 
 
+def detector_step(env, xs):
+    """One sample of the attack/release peak detector (rs:96-99)."""
+    r, ac, rc, byp = xs
+    c = jnp.where(r > env, ac, rc)
+    new = c * env + (1.0 - c) * r
+    new = jnp.where(new < 1e-15, 0.0, new)
+    new = jnp.where(byp, env, new)
+    return new, new
+
+
 def process_block(
     state: CompressorState,
     x,                 # [2, B]
@@ -85,14 +90,8 @@ def process_block(
     sample_rate: float,
     sidechain=None,    # optional [2, B] detector source
     os_mode: int = 4,
-    impl: str | None = None,
 ):
     """One block of the stereo compressor → ``(new_state, out[2, B])``."""
-    import jax
-
-    impl = IMPL if impl is None else impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     B = x.shape[-1]
     x = jnp.where(jnp.isfinite(x), x, 0.0)
     sc = x if sidechain is None else jnp.where(jnp.isfinite(sidechain), sidechain, 0.0)
@@ -120,40 +119,8 @@ def process_block(
     rel_c = jnp.exp(-1.0 / (rel_ms * 0.001 * sample_rate))
     rect = jnp.abs(sc)
 
-    if impl == "pallas" and os_mode == 4:
-        from libgooey_tpu.ops import pallas_fx
-
-        env, env_state = pallas_fx.env_follower_block(
-            rect, att_c, rel_c, bypass.astype(jnp.float32), state.envelope
-        )
-        packed = pallas_fx.pack_ovs4_dc(state.ovs, state.dc.x1, state.dc.y1)
-        out, nst = pallas_fx.compressor_block(
-            x, env, thr, ratio, mix, packed, state.gain
-        )
-        new_ovs, dc_x1, dc_y1, _ = pallas_fx.unpack_ovs4_dc(nst, state.ovs)
-        return CompressorState(
-            envelope=env_state,
-            gain=nst[0:2, pallas_fx._OUT_IDX["gain"]],
-            dc=DCBlockState(x1=dc_x1, y1=dc_y1),
-            ovs=new_ovs,
-            smooth=SmootherBank(
-                current=jnp.stack(
-                    [thr[:, -1], ratio[:, -1], att_ms[:, -1], rel_ms[:, -1],
-                     mix[:, -1]], axis=-1,
-                ),
-                target=bank.target,
-            ),
-        ), out
-
-    def step(env, xs):
-        r, ac, rc, byp = xs
-        c = jnp.where(r > env, ac, rc)
-        new = c * env + (1.0 - c) * r
-        new = jnp.where(new < 1e-15, 0.0, new)
-        return jnp.where(byp, env, new), jnp.where(byp, env, new)
-
     env_state, env = gscan.nonlinear_scan(
-        step, state.envelope, (rect, att_c, rel_c, bypass)
+        detector_step, state.envelope, (rect, att_c, rel_c, bypass)
     )
 
     env_db = 20.0 * jnp.log10(env + 1e-20)

@@ -13,7 +13,7 @@ Behavioral reference: src/effects/delay.rs (668 LoC).
   buffer only the left tap (delay.rs:460-491);
 * smoothing: 50 ms (time), 30 ms (feedback/mix/cutoff).
 
-TPU mapping: the delay time is always ≥ one block at musical BPMs, so a
+Block mapping: the delay time is always ≥ one block at musical BPMs, so a
 block's reads reference only previously written samples — the whole effect
 is one gather + a linrec2 filter scan + elementwise write/scatter.  (The
 shortest division, a sixteenth triplet, dips below 512 samples only above
@@ -55,10 +55,6 @@ class DelayState(NamedTuple):
 
 PARAM_TIME, PARAM_FEEDBACK, PARAM_MIX, PARAM_CUTOFF = range(4)
 
-#: "auto" -> fused Pallas kernel on TPU for the post-read path (the 5 s
-#: ring stays an XLA HBM gather/scatter); XLA scans elsewhere.
-IMPL = "auto"
-
 
 def init_state(sample_rate: float, time_s: float = 0.5, feedback: float = 0.3,
                mix: float = 0.3, cutoff: float = 8000.0) -> DelayState:
@@ -92,14 +88,8 @@ def process_block(
     *,
     sample_rate: float,
     pingpong: bool = False,
-    impl: str | None = None,
 ):
     """One block of the stereo delay → ``(new_state, out[2, B])``."""
-    import jax
-
-    impl = IMPL if impl is None else impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     B = x.shape[-1]
     x = jnp.where(jnp.isfinite(x), x, 0.0)
     c_time, c_other = smoothing_coeffs(sample_rate)
@@ -121,26 +111,6 @@ def process_block(
     # fractional delayed read (lag >= block: all data pre-block)
     delay_samples = time_traj * sample_rate
     delayed = ringbuf.read_frac(state.ring, delay_samples, min_offset=1.0)
-
-    if impl == "pallas":
-        from libgooey_tpu.ops import pallas_fx
-
-        st = jnp.concatenate(
-            [state.filter_z, jnp.zeros((2, 3), jnp.float32)], axis=-1
-        )
-        out, write, nst = pallas_fx.delay_block(
-            x, delayed, state.smooth.current[:, 1:4], bank.target[:, 1:4], st,
-            coeff=c_other, sample_rate=sample_rate, pingpong=pingpong,
-        )
-        ring = ringbuf.write_block(state.ring, write)
-        return DelayState(
-            ring=ring,
-            filter_z=nst[:, 0:2],
-            smooth=SmootherBank(
-                current=jnp.concatenate([time_traj[:, -1:], nst[:, 2:5]], axis=-1),
-                target=bank.target,
-            ),
-        ), out
 
     pw_other = jnp.power(1.0 - c_other, jnp.arange(1, B + 1, dtype=jnp.float32))
     fb_traj = traj(PARAM_FEEDBACK, pw_other)

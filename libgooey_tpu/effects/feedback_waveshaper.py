@@ -14,7 +14,7 @@ sample:
 Bypass when mix <= 1e-4 or drive <= 1 (state frozen).  NaN input resets
 state; |last_out| > 50 resets and passes the input through.
 
-TPU mapping: two paths, chosen statically by the caller:
+Block mapping: two paths, chosen statically by the caller:
 
 * ``feedback=0`` fast path (every factory preset): the nonlinearity is
   feed-forward, so tanh/compensation vectorize over ``[V, B]``; only the
@@ -22,7 +22,7 @@ TPU mapping: two paths, chosen statically by the caller:
   a short sequential scan, and the DC-blocker/feedback filter collapse to
   associative scans.
 * general path: the loop is a true nonlinear recurrence; runs via
-  ``nonlinear_scan`` (per-sample lax.scan carrying 5 per-voice floats).
+  ``nonlinear_scan`` (a per-sample loop carrying 5 per-voice floats).
 
 The tanh runs through the polyphase half-band oversampler at ``os_mode``×
 (reference default 4x) on the fast path.  Deviation: the general feedback
@@ -34,6 +34,7 @@ feedback filter's own low-pass.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import jax.numpy as jnp
@@ -42,10 +43,6 @@ import numpy as np
 from libgooey_tpu.ops import oversample as ovs_mod
 from libgooey_tpu.ops import scan as gscan
 from libgooey_tpu.ops.filters import _shift1
-
-#: "auto" -> fused Pallas fast path on TPU for the stereo-bus zero-feedback
-#: case; "xla" forces the scan path; "pallas" forces the kernel (tests).
-IMPL = "auto"
 
 DC_COEFF = 0.995
 ENV_ATTACK_MS = 1.0
@@ -102,40 +99,24 @@ def gain_compensation(env, drive, feedback):
     return jnp.minimum(comp_no_fb * taming * high_end_makeup, MAX_COMP_GAIN)
 
 
-def _env_follow_scan(env0, rect, att, rel, freeze):
-    """Asymmetric attack/release follower: sequential over the block.
+def env_follow_step(env, xs, *, att, rel):
+    """One sample of the attack/release follower (rs:242-244).
 
-    env += (1-c)(rect - env) with c chosen per sample by rect > env; denormal
-    flush at 1e-15.  ``freeze`` masks bypassed samples (state untouched).
+    env += (1-c)(rect - env) with c chosen by rect > env; denormal flush at
+    1e-15.  ``freeze`` masks bypassed samples (state untouched).
     """
-
-    def step(env, xs):
-        r, frz = xs
-        c = jnp.where(r > env, att, rel)
-        new = env + (1.0 - c) * (r - env)
-        new = jnp.where(jnp.abs(new) < 1e-15, 0.0, new)
-        new = jnp.where(frz, env, new)
-        return new, new
-
-    return gscan.nonlinear_scan(step, env0, (rect, freeze))
+    r, frz = xs
+    c = jnp.where(r > env, att, rel)
+    new = env + (1.0 - c) * (r - env)
+    new = jnp.where(jnp.abs(new) < 1e-15, 0.0, new)
+    new = jnp.where(frz, env, new)
+    return new, new
 
 
 def _env_follow(env0, rect, att, rel, freeze):
-    """Dispatch: wide voice banks use the Pallas [B, G, 128] kernel (the
-    512-step lax.scan was ~0.87 ms of the 4,096-voice kick block; the
-    kernel is bit-exact to the scan), everything else the sequential scan."""
-    import jax
-
-    use_kernel = (
-        (jax.default_backend() == "tpu" and IMPL != "xla") or IMPL == "pallas"
-    )
-    if rect.ndim == 2 and rect.shape[0] >= 128 and use_kernel:
-        from libgooey_tpu.ops import pallas_fx
-
-        env, env_last = pallas_fx.env_follow_bank(
-            rect, freeze, env0, att=float(att), rel=float(rel))
-        return env_last, env
-    return _env_follow_scan(env0, rect, att, rel, freeze)
+    """Asymmetric attack/release follower: sequential over the block."""
+    step = functools.partial(env_follow_step, att=att, rel=rel)
+    return gscan.nonlinear_scan(step, env0, (rect, freeze))
 
 
 def process_block(
@@ -159,49 +140,6 @@ def process_block(
 
     Returns ``(new_state, out)``.
     """
-    import jax
-
-    scalar_params = all(
-        jnp.ndim(p) == 0 for p in (drive, feedback, fb_filter_coeff, mix)
-    )
-    use_fast_kernel = (
-        (jax.default_backend() == "tpu" and IMPL != "xla") or IMPL == "pallas"
-    )
-    if (not feedback_path and os_mode == 4 and scalar_params
-            and x.ndim == 2 and x.shape[0] == 2 and use_fast_kernel):
-        # fused stereo-bus fast path: one SMEM env kernel + one vector
-        # kernel (ops/pallas_fx.py) instead of ~15 scans
-        from libgooey_tpu.ops import pallas_fx
-
-        att_r, rel_r = env_coeffs(sample_rate)
-        d_b = jnp.broadcast_to(jnp.asarray(drive, jnp.float32), x.shape)
-        m_b = jnp.broadcast_to(jnp.asarray(mix, jnp.float32), x.shape)
-        byp = ((m_b <= 1e-4) | (d_b <= 1.0)).astype(jnp.float32)
-        env, env_last = pallas_fx.env_follower_block(
-            jnp.abs(x), jnp.full_like(x, att_r), jnp.full_like(x, rel_r),
-            byp, state.env,
-        )
-        packed = pallas_fx.pack_ovs4_dc(state.ovs, state.dc_x1, state.dc_y1)
-        out, nst = pallas_fx.fbws_fast_block(
-            x, env, drive, feedback, fb_filter_coeff, mix, packed,
-            state.filter_state,
-        )
-        new_ovs2, dc_x1, dc_y1, _ = pallas_fx.unpack_ovs4_dc(nst, state.ovs)
-        filt_last = nst[0:2, pallas_fx._OUT_IDX["gain"]]
-        # exact bypass freeze of the oversampler history at block
-        # granularity (feedback_waveshaper.rs early return; effects/freeze.py)
-        from libgooey_tpu.effects import freeze as frz
-
-        held = jnp.all(byp > 0.5, axis=-1)
-        return FBShaperState(
-            last_out=filt_last,
-            filter_state=filt_last,
-            dc_x1=dc_x1,
-            dc_y1=dc_y1,
-            env=env_last,
-            ovs=frz.hold_where(held, state.ovs, new_ovs2),
-        ), out
-
     drive, feedback, fbc, mix, x = jnp.broadcast_arrays(
         jnp.asarray(drive, jnp.float32),
         jnp.asarray(feedback, jnp.float32),
@@ -211,43 +149,9 @@ def process_block(
     )
     att, rel = env_coeffs(sample_rate)
     bypass = (mix <= 1e-4) | (drive <= 1.0)
-    new_ovs = state.ovs
 
     if not feedback_path:
         # --- zero-feedback fast path: feed-forward nonlinearity ------------
-        if (os_mode == 4 and x.ndim == 2 and x.shape[0] >= 128
-                and x.shape[-1] >= 2 and use_fast_kernel):
-            # fused voice-bank kernel: the whole 4x-oversampled chain plus
-            # the gated DC blocker / feedback filter run sample-sequential
-            # in vregs (ops/pallas_fx.fbws_bank) — the XLA formulation's
-            # [V, 4B] intermediates and log-depth scans cost ~1.9 ms of
-            # the 4,096-voice kick block.  env + the transcendental
-            # makeup-gain curve stay vectorized out here.
-            from libgooey_tpu.ops import pallas_fx
-
-            env_state, env = _env_follow(state.env, jnp.abs(x), att, rel, bypass)
-            comp = gain_compensation(env, drive, feedback)
-            comp_signed = jnp.where(bypass, -1.0, comp)
-            dc, nst = pallas_fx.fbws_bank(
-                drive * x, comp_signed, pallas_fx.pack_fbws_bank(state))
-            new_ovs, dc_x1, dc_y1 = pallas_fx.unpack_fbws_bank(nst, state)
-            from libgooey_tpu.effects import freeze as frz
-
-            new_ovs = frz.hold_where(
-                jnp.all(bypass, axis=-1), state.ovs, new_ovs)
-            # feedback-filter state: pure bookkeeping on this path (the
-            # loop gain is 0) — one scan outside keeps the kernel inside
-            # the VMEM budget
-            filt = gscan.linrec1(
-                jnp.where(bypass, 1.0, 1.0 - fbc),
-                jnp.where(bypass, 0.0, fbc * dc), state.filter_state)
-            filt = jnp.where(jnp.abs(filt) < 1e-15, 0.0, filt)
-            new_state = FBShaperState(
-                last_out=filt[..., -1], filter_state=filt[..., -1],
-                dc_x1=dc_x1, dc_y1=dc_y1, env=env_state, ovs=new_ovs)
-            out = jnp.where(bypass, x, x * (1.0 - mix) + dc * mix)
-            return new_state, out
-
         new_ovs, shaped = ovs_mod.process(state.ovs, jnp.tanh, drive * x, os_mode)
         env_state, env = _env_follow(state.env, jnp.abs(x), att, rel, bypass)
         comp = gain_compensation(env, drive, feedback)

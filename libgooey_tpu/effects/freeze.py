@@ -5,7 +5,7 @@ The reference's bypass paths are early returns that freeze ALL DSP state
 bass.rs:846).  Per-sample recurrences here freeze with ``jnp.where`` masks
 on their coefficients (DC blockers, envelope followers), but the polyphase
 half-band oversampler chains and the tilt SVF owe their speed to
-constant-coefficient formulations (Toeplitz MXU matmuls / single scans)
+constant-coefficient formulations (Toeplitz matmuls / single scans)
 that cannot freeze per sample.
 
 This module provides the next-best exact semantics: when EVERY sample of a

@@ -40,20 +40,23 @@ def init_state(sample_rate: float, cutoff=8000.0, resonance=0.2) -> LowpassState
     return LowpassState(stages=jnp.zeros((2, 2), jnp.float32), smooth=SmootherBank.init(vals))
 
 
-#: "auto" -> SMEM scalar-loop Pallas kernel on TPU (the tanh'd feedback is
-#: a true nonlinear recurrence; ops/pallas_fx.py lowpass_block), XLA
-#: sequential scan elsewhere.
-IMPL = "auto"
+def ladder_step(stages, xs):
+    """One sample of the two-pole ladder with tanh'd resonance feedback."""
+    xn, gn, fbn = xs
+    s1, s2 = stages
+    infb = xn - jnp.tanh(s2 * fbn) * jnp.minimum(fbn, 1.0)
+    s1 = s1 + gn * (infb - s1)
+    s2 = s2 + gn * (s1 - s2)
+    s1 = jnp.where(jnp.abs(s1) < 1e-15, 0.0, s1)
+    s2 = jnp.where(jnp.abs(s2) < 1e-15, 0.0, s2)
+    out = jnp.tanh(s2)
+    ok = jnp.isfinite(out)
+    return ((jnp.where(ok, s1, 0.0), jnp.where(ok, s2, 0.0)),
+            jnp.where(ok, out, 0.0))
 
 
-def process_block(state: LowpassState, x, targets, *, sample_rate: float,
-                  impl: str | None = None):
+def process_block(state: LowpassState, x, targets, *, sample_rate: float):
     """One block of the stereo resonant LP → ``(new_state, out[2, B])``."""
-    import jax
-
-    impl = IMPL if impl is None else impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     B = x.shape[-1]
     x = jnp.where(jnp.isfinite(x), x, 0.0)
     coeff = smoothing_coeff(sample_rate, 30.0)
@@ -74,33 +77,9 @@ def process_block(state: LowpassState, x, targets, *, sample_rate: float,
     res_eff = res * (1.0 - freq_ratio * freq_ratio * 0.7)
     fb = res_eff * 3.5
 
-    if impl == "pallas":
-        from libgooey_tpu.ops import pallas_fx
-
-        out, stages = pallas_fx.lowpass_block(x, g, fb, state.stages)
-        return LowpassState(
-            stages=stages,
-            smooth=SmootherBank(
-                current=jnp.stack([traj(P_CUTOFF)[:, -1], res[:, -1]], axis=-1),
-                target=bank.target,
-            ),
-        ), out
-
-    def step(stages, xs):
-        xn, gn, fbn = xs
-        s1, s2 = stages[:, 0], stages[:, 1]
-        infb = xn - jnp.tanh(s2 * fbn) * jnp.minimum(fbn, 1.0)
-        s1 = s1 + gn * (infb - s1)
-        s2 = s2 + gn * (s1 - s2)
-        s1 = jnp.where(jnp.abs(s1) < 1e-15, 0.0, s1)
-        s2 = jnp.where(jnp.abs(s2) < 1e-15, 0.0, s2)
-        out = jnp.tanh(s2)
-        new = jnp.stack([s1, s2], axis=-1)
-        ok = jnp.isfinite(out)
-        new = jnp.where(ok[:, None], new, 0.0)
-        return new, jnp.where(ok, out, 0.0)
-
-    stages, out = gscan.nonlinear_scan(step, state.stages, (x, g, fb))
+    (s1, s2), out = gscan.nonlinear_scan(
+        ladder_step, (state.stages[:, 0], state.stages[:, 1]), (x, g, fb))
+    stages = jnp.stack([s1, s2], axis=-1)
 
     new_state = LowpassState(
         stages=stages,

@@ -12,7 +12,7 @@ and a size knob (0.25x-2x) rescaling all tank delays through fractional
 reads.  The tank is shared: stereo input is mono-summed (plate_reverb.rs:
 551-563).
 
-TPU mapping.  Every tank delay-line lag (d1/d2/ap2) exceeds ~666 samples
+Block mapping.  Every tank delay-line lag (d1/d2/ap2) exceeds ~666 samples
 even at minimum size, so for block sizes up to that bound the whole tank is
 FEED-FORWARD given per-block gathers: reads at sample n only touch
 pre-block history.  The six tank lines are rows of ONE [6, LT] matrix, so
@@ -20,10 +20,7 @@ all six reads are two gathers (lerp endpoints), the six writes one aligned
 dynamic-update-slice, and the 14 output taps two more gathers.  The only
 sub-block recurrences — the input-diffusion chain (lags ≥ ~158) and the two
 LFO-modulated allpasses (lags ≥ ~213) — run chunked over right-aligned work
-histories; on TPU they fuse with the bandwidth/damping scans into one
-Pallas kernel (ops/pallas_fx.py plate_block) where the modulated per-sample
-fractional reads become one-hot matmuls over a provably-wide-enough window
-(the smoother's per-chunk travel is analytically bounded).
+histories.
 """
 
 from __future__ import annotations
@@ -35,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from libgooey_tpu.core.smoother import SmootherBank, smoothing_coeff
-from libgooey_tpu.ops import mxgather, ringbuf, scan as gscan
+from libgooey_tpu.ops import ringbuf, scan as gscan
 
 DATTORRO_SR = 29_761.0
 INPUT_AP_DELAYS = (142.0, 107.0, 379.0, 277.0)
@@ -72,18 +69,6 @@ RIGHT_TAPS = (
 
 PARAMS = ("decay", "mix", "damping", "predelay", "width", "size")
 P_DECAY, P_MIX, P_DAMPING, P_PREDELAY, P_WIDTH, P_SIZE = range(6)
-
-#: "auto" -> fused Pallas kernel for the chunked recurrences on TPU,
-#: XLA chunk loop elsewhere; "xla" / "pallas" force a path.
-IMPL = "auto"
-
-#: Pallas-path chunk override (None -> chunk_size()'s value).  Any C <=
-#: chunk_size() computes IDENTICAL per-sample values (chunking is exact
-#: evaluation order, not approximation); smaller C shrinks the one-hot
-#: window WD (the Lipschitz travel bound scales with C) and with it both
-#: the VPU compare volume and the M=1 MXU pass count — C=64 halves both
-#: vs C=128 at 44.1 kHz.  Tuned on hardware via tools/bench_fx.py.
-KERNEL_CHUNK: int | None = 64
 
 
 def size_to_scale(size):
@@ -137,9 +122,8 @@ def init_state(sample_rate: float, decay: float = 0.5, mix: float = 0.3,
                damping: float = 0.5, predelay: float = 0.0, width: float = 1.0,
                size: float = 0.5) -> PlateState:
     return PlateState(
-        # rounded to a multiple of 128 so the TPU path can read it with
-        # one-hot MXU matmuls (extra capacity is inert: taps never exceed
-        # MAX_PREDELAY_MS)
+        # rounded up to a multiple of 128 (extra capacity is inert: taps
+        # never exceed MAX_PREDELAY_MS)
         predelay=ringbuf.Ring.init(
             (int(np.ceil(MAX_PREDELAY_MS * 0.001 * sample_rate)) + 8 + 127)
             // 128 * 128
@@ -237,19 +221,14 @@ def _tank_write(tank, pos, vals):
     return tank.at[:, idx].set(vals)
 
 
-
 def process_block(
     state: PlateState,
     x,             # [2, B]
     targets,       # [6]: decay, mix, damping, predelay, width, size (0-1)
     *,
     sample_rate: float,
-    impl: str | None = None,
 ):
     """One block of the plate → ``(new_state, out[2, B])``."""
-    impl = IMPL if impl is None else impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     B = x.shape[-1]
     C = chunk_size(sample_rate, B)
     srs = _srs(sample_rate)
@@ -295,31 +274,15 @@ def process_block(
 
     # --- predelay (post-write fractional tap), block level ------------------
     pre_ring = ringbuf.write_block(s.predelay, mono_in)
-    PL = pre_ring.buf.shape[-1]
-    if impl == "pallas" and PL % mxgather.LANE == 0:
-        delayed_in = mxgather.lerp_read(
-            mxgather.overlap_view(pre_ring.buf[None]),
-            jnp.clip(predelay_t, 0.0, PL - 2.0)[None],
-            pre_ring.pos - B, min_offset=0.0,
-        )[0]
-    else:
-        delayed_in = ringbuf.tap_frac(pre_ring, predelay_t, B)
+    delayed_in = ringbuf.tap_frac(pre_ring, predelay_t, B)
 
     # --- block-level tank reads: ONE pair of gathers for all 6 lines --------
-    # (on the TPU path: one-hot MXU matmuls — bit-exact, ~15x cheaper than
-    # XLA's per-element minor-dim gather; see ops/mxgather.py)
     tank_offs = jnp.stack([
         TANK_DELAY1_A * srs * size_t, TANK_DELAY1_B * srs * size_t,
         TANK_AP2_A * srs * size_t, TANK_AP2_B * srs * size_t,
         TANK_DELAY2_A * srs * size_t, TANK_DELAY2_B * srs * size_t,
     ])
-    if impl == "pallas":
-        reads = mxgather.lerp_read(
-            mxgather.overlap_view(s.tank),
-            jnp.clip(tank_offs, 1.0, s.tank.shape[-1] - 2.0), s.pos,
-        )
-    else:
-        reads = _tank_read(s.tank, s.pos, tank_offs)
+    reads = _tank_read(s.tank, s.pos, tank_offs)
     d1a_read, d1b_read = reads[T_D1A], reads[T_D1B]
     ap2a_read, ap2b_read = reads[T_AP2A], reads[T_AP2B]
     d2a_read, d2b_read = reads[T_D2A], reads[T_D2B]
@@ -333,104 +296,77 @@ def process_block(
     modb_off = jnp.clip(TANK_AP1_B * srs * size_t + lfo_b_t * exc,
                         1.0, DMOD - 2.0)
 
-    if impl == "pallas":
-        from libgooey_tpu.ops import pallas_fx
+    # --- bandwidth + damping scans, chunked input/mod APs -------------------
+    bw_full = gscan.linrec1(
+        jnp.full((B,), 1.0 - INPUT_BANDWIDTH, jnp.float32),
+        INPUT_BANDWIDTH * delayed_in,
+        s.bandwidth,
+    )
+    bw0 = bw_full[-1]
+    da = gscan.linrec1(damping_t, d1a_read * (1.0 - damping_t), s.damp_a)
+    db = gscan.linrec1(damping_t, d1b_read * (1.0 - damping_t), s.damp_b)
+    da0, db0 = da[-1], db[-1]
 
-        # the kernel may run a smaller exact chunk than the XLA loop (see
-        # KERNEL_CHUNK): same per-sample values, smaller one-hot windows
-        if KERNEL_CHUNK is not None:
-            C = min(C, max(1, KERNEL_CHUNK))
+    W_in = jnp.concatenate(
+        [s.in_hist, jnp.zeros((4, B), jnp.float32)], axis=-1
+    )
+    W_mod = jnp.concatenate(
+        [s.mod_hist, jnp.zeros((2, B), jnp.float32)], axis=-1
+    )
+    mod_off = jnp.stack([moda_off, modb_off])  # [2, B]
+    mod_whole = jnp.floor(mod_off)
+    mod_frac = mod_off - mod_whole
+    a1_parts, b1_parts = [], []
+    for k in range(B // C):
+        sl = slice(k * C, (k + 1) * C)
+        sck = k * C
+        bw = bw_full[sl]
 
-        # per-chunk window bases for the one-hot modulated reads
-        wholes = jnp.stack([
-            jnp.floor(moda_off), jnp.floor(modb_off)
-        ]).astype(jnp.int32)                       # [2, B]
-        n_i = jnp.arange(B, dtype=jnp.int32)[None, :]
-        col_b = DMOD + n_i - wholes - 1            # lerp's older endpoint
-        wbase = jnp.min(col_b.reshape(2, B // C, C), axis=-1)  # [2, n_chunks]
-
-        (a1, b1, da, db, new_in_hist, new_mod_hist,
-         seeds_out) = pallas_fx.plate_block(
-            delayed_in, fb_a_t, fb_b_t, damping_t,
-            d1a_read, d1b_read,
-            jnp.stack([moda_off, modb_off]), wbase,
-            s.in_hist, s.mod_hist,
-            jnp.stack([s.bandwidth, s.damp_a, s.damp_b]),
-            chunk=C, sample_rate=sample_rate,
-        )
-        bw0, da0, db0 = seeds_out[0], seeds_out[1], seeds_out[2]
-    else:
-        # --- XLA path: bandwidth + damping scans, chunked input/mod APs -----
-        bw_full = gscan.linrec1(
-            jnp.full((B,), 1.0 - INPUT_BANDWIDTH, jnp.float32),
-            INPUT_BANDWIDTH * delayed_in,
-            s.bandwidth,
-        )
-        bw0 = bw_full[-1]
-        da = gscan.linrec1(damping_t, d1a_read * (1.0 - damping_t), s.damp_a)
-        db = gscan.linrec1(damping_t, d1b_read * (1.0 - damping_t), s.damp_b)
-        da0, db0 = da[-1], db[-1]
-
-        W_in = jnp.concatenate(
-            [s.in_hist, jnp.zeros((4, B), jnp.float32)], axis=-1
-        )
-        W_mod = jnp.concatenate(
-            [s.mod_hist, jnp.zeros((2, B), jnp.float32)], axis=-1
-        )
-        mod_off = jnp.stack([moda_off, modb_off])  # [2, B]
-        mod_whole = jnp.floor(mod_off)
-        mod_frac = mod_off - mod_whole
-        a1_parts, b1_parts = [], []
-        for k in range(B // C):
-            sl = slice(k * C, (k + 1) * C)
-            sck = k * C
-            bw = bw_full[sl]
-
-            # input diffusion: static-lag reads + affine chain
-            alpha, beta = 1.0, 0.0
-            sdir, sadd, sdel = [], [], []
-            for i, (d, g) in enumerate(zip(INPUT_AP_DELAYS, INPUT_AP_GAINS)):
-                o = max(d * srs, 1.0)
-                w = int(np.floor(o))
-                f = np.float32(o - w)
-                col = DIN + sck - w
-                av = W_in[i, col:col + C]
-                bv = W_in[i, col - 1:col - 1 + C]
-                dv = av + f * (bv - av)
-                sdir.append(alpha)
-                sadd.append(beta)
-                sdel.append(dv)
-                beta = g * beta + (1.0 - g * g) * dv
-                alpha = alpha * g
-            sig = alpha * bw + beta
-            for i, g in enumerate(INPUT_AP_GAINS):
-                v_i = (sdir[i] * bw + sadd[i]) - g * sdel[i]
-                W_in = jax.lax.dynamic_update_slice(
-                    W_in, v_i[None, :], (jnp.int32(i), jnp.int32(DIN + sck))
-                )
-
-            in_a = sig + fb_b_t[sl]
-            in_b = sig + fb_a_t[sl]
-
-            # modulated APs: per-sample gathers into the work rows
-            n_c = jnp.arange(sck, sck + C, dtype=jnp.int32)[None, :]
-            col_a = DMOD + n_c - mod_whole[:, sl].astype(jnp.int32)
-            av = jnp.take_along_axis(W_mod, col_a, axis=-1)
-            bv = jnp.take_along_axis(W_mod, col_a - 1, axis=-1)
-            delayed = av + mod_frac[:, sl] * (bv - av)
-            ins = jnp.stack([in_a, in_b])
-            v = ins - DECAY_DIFFUSION_1 * delayed
-            outs = DECAY_DIFFUSION_1 * v + delayed
-            a1_parts.append(outs[0])
-            b1_parts.append(outs[1])
-            W_mod = jax.lax.dynamic_update_slice(
-                W_mod, v, (jnp.int32(0), jnp.int32(DMOD + sck))
+        # input diffusion: static-lag reads + affine chain
+        alpha, beta = 1.0, 0.0
+        sdir, sadd, sdel = [], [], []
+        for i, (d, g) in enumerate(zip(INPUT_AP_DELAYS, INPUT_AP_GAINS)):
+            o = max(d * srs, 1.0)
+            w = int(np.floor(o))
+            f = np.float32(o - w)
+            col = DIN + sck - w
+            av = W_in[i, col:col + C]
+            bv = W_in[i, col - 1:col - 1 + C]
+            dv = av + f * (bv - av)
+            sdir.append(alpha)
+            sadd.append(beta)
+            sdel.append(dv)
+            beta = g * beta + (1.0 - g * g) * dv
+            alpha = alpha * g
+        sig = alpha * bw + beta
+        for i, g in enumerate(INPUT_AP_GAINS):
+            v_i = (sdir[i] * bw + sadd[i]) - g * sdel[i]
+            W_in = jax.lax.dynamic_update_slice(
+                W_in, v_i[None, :], (jnp.int32(i), jnp.int32(DIN + sck))
             )
 
-        a1 = jnp.concatenate(a1_parts)
-        b1 = jnp.concatenate(b1_parts)
-        new_in_hist = W_in[:, B:B + DIN]
-        new_mod_hist = W_mod[:, B:B + DMOD]
+        in_a = sig + fb_b_t[sl]
+        in_b = sig + fb_a_t[sl]
+
+        # modulated APs: per-sample gathers into the work rows
+        n_c = jnp.arange(sck, sck + C, dtype=jnp.int32)[None, :]
+        col_a = DMOD + n_c - mod_whole[:, sl].astype(jnp.int32)
+        av = jnp.take_along_axis(W_mod, col_a, axis=-1)
+        bv = jnp.take_along_axis(W_mod, col_a - 1, axis=-1)
+        delayed = av + mod_frac[:, sl] * (bv - av)
+        ins = jnp.stack([in_a, in_b])
+        v = ins - DECAY_DIFFUSION_1 * delayed
+        outs = DECAY_DIFFUSION_1 * v + delayed
+        a1_parts.append(outs[0])
+        b1_parts.append(outs[1])
+        W_mod = jax.lax.dynamic_update_slice(
+            W_mod, v, (jnp.int32(0), jnp.int32(DMOD + sck))
+        )
+
+    a1 = jnp.concatenate(a1_parts)
+    b1 = jnp.concatenate(b1_parts)
+    new_in_hist = W_in[:, B:B + DIN]
+    new_mod_hist = W_mod[:, B:B + DMOD]
 
     # --- tank math (block-level, elementwise) -------------------------------
     v2a = da * decay_t - dd2_t * ap2a_read
@@ -454,14 +390,7 @@ def process_block(
     tap_signs = np.asarray(
         [sg for _, _, sg in LEFT_TAPS + RIGHT_TAPS], np.float32
     )[:, None]
-    if impl == "pallas":
-        tapped = mxgather.lerp_read(
-            mxgather.overlap_view(tank),
-            jnp.clip(tap_offs, 0.0, tank.shape[-1] - 2.0),
-            pos_after - B, rows=tap_rows, min_offset=0.0,
-        ) * tap_signs
-    else:
-        tapped = _tank_taps(tank, pos_after, tap_offs, tap_rows, B) * tap_signs
+    tapped = _tank_taps(tank, pos_after, tap_offs, tap_rows, B) * tap_signs
     yl = OUTPUT_SCALE * jnp.sum(tapped[:7], axis=0)
     yr = OUTPUT_SCALE * jnp.sum(tapped[7:], axis=0)
     mid = 0.5 * (yl + yr)

@@ -10,7 +10,7 @@ Behavioral reference: src/effects/reverb.rs (235 LoC).  Per channel:
     fb    = damp' * (decay^0.4 * 0.95)     (used next sample)
     out   = input*(1-mix) + signal*mix
 
-TPU mapping: each allpass is affine in its input given its (>=127-sample-old)
+Block mapping: each allpass is affine in its input given its (>=127-sample-old)
 delayed reads, so a whole chunk of C <= min-delay samples collapses: the
 chain is ``signal -> alpha*signal + beta[n]`` with alpha = prod(gains), and
 the only true recurrence is the damping one-pole coupled to the one-sample
@@ -23,10 +23,8 @@ State layout: instead of modulo ring buffers, the 12 allpass delay lines are
 rows of one right-aligned history matrix ``hist[12, D]`` (D = max delay);
 row i's last d_i columns hold the most recent d_i written values.  Per block
 the matrix extends to a work buffer ``W[12, D+B]`` where every delayed read
-and every write is a *static contiguous slice* — no gathers, no wraps.  On
-TPU the whole block runs as ONE Pallas kernel with W in VMEM
-(ops/pallas_fx.py); elsewhere the identical chunk loop runs as XLA slices +
-associative scans.
+and every write is a *static contiguous slice* — no gathers, no wraps.  The
+block runs as a chunk loop of XLA slices + associative scans.
 """
 
 from __future__ import annotations
@@ -86,25 +84,14 @@ def chunk_size(sample_rate: float, block_size: int) -> int:
     return max(c, 1)
 
 
-#: "auto" -> fused Pallas VMEM kernel on TPU (ops/pallas_fx.py), XLA
-#: chunked slices + scans elsewhere; "xla" / "pallas" force a path.
-IMPL = "auto"
-
-
 def process_block(
     state: SpringState,
     x,           # [2, B]
     targets,     # [3]: decay, mix, damping
     *,
     sample_rate: float,
-    impl: str | None = None,
 ):
     """One block of the stereo spring reverb → ``(new_state, out[2, B])``."""
-    import jax
-
-    impl = IMPL if impl is None else impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     B = x.shape[-1]
     C = chunk_size(sample_rate, B)
     n_chunks = B // C
@@ -147,48 +134,40 @@ def process_block(
     A = A.at[:, 0].set(damping_t[:, 0])
     xeff = x.astype(jnp.float32).at[:, 0].add(state.fb)
 
-    if impl == "pallas":
-        from libgooey_tpu.ops import pallas_fx
-
-        wet, new_hist, d_last = pallas_fx.spring_block(
-            xeff, A, p2, fbgp, state.hist, state.damp,
-            delays=delays, gains=GAINS, chunk=C,
-        )
-    else:
-        W = jnp.concatenate(
-            [state.hist, jnp.zeros((2 * NUM_ALLPASSES, B), jnp.float32)], axis=-1
-        )
-        damp0 = state.damp
-        wets = []
-        for c in range(n_chunks):
-            s = c * C
-            sl = slice(s, s + C)
-            delayed = [
-                jnp.stack([
-                    W[i, D + s - delays[i]:D + s - delays[i] + C],
-                    W[NUM_ALLPASSES + i,
-                      D + s - delays[NUM_ALLPASSES + i]:
-                      D + s - delays[NUM_ALLPASSES + i] + C],
-                ])
-                for i in range(NUM_ALLPASSES)
-            ]
-            beta = jnp.zeros((2, C), jnp.float32)
-            for g, dly in zip(GAINS, delayed):
-                beta = g * beta + (1.0 - g * g) * dly
-            Bv = p2[:, sl] * (alpha * xeff[:, sl] + beta)
-            d_traj = gscan.linrec1(A[:, sl], Bv, damp0)
-            d_prev = jnp.concatenate([damp0[:, None], d_traj[:, :-1]], axis=-1)
-            sig = xeff[:, sl] + fbgp[:, sl] * d_prev
-            for i, (g, dly) in enumerate(zip(GAINS, delayed)):
-                v = sig - g * dly
-                W = W.at[i, D + s:D + s + C].set(v[0])
-                W = W.at[NUM_ALLPASSES + i, D + s:D + s + C].set(v[1])
-                sig = g * v + dly
-            wets.append(sig)
-            damp0 = d_traj[:, -1]
-        wet = jnp.concatenate(wets, axis=-1)
-        new_hist = W[:, B:B + D]
-        d_last = damp0
+    W = jnp.concatenate(
+        [state.hist, jnp.zeros((2 * NUM_ALLPASSES, B), jnp.float32)], axis=-1
+    )
+    damp0 = state.damp
+    wets = []
+    for c in range(n_chunks):
+        s = c * C
+        sl = slice(s, s + C)
+        delayed = [
+            jnp.stack([
+                W[i, D + s - delays[i]:D + s - delays[i] + C],
+                W[NUM_ALLPASSES + i,
+                  D + s - delays[NUM_ALLPASSES + i]:
+                  D + s - delays[NUM_ALLPASSES + i] + C],
+            ])
+            for i in range(NUM_ALLPASSES)
+        ]
+        beta = jnp.zeros((2, C), jnp.float32)
+        for g, dly in zip(GAINS, delayed):
+            beta = g * beta + (1.0 - g * g) * dly
+        Bv = p2[:, sl] * (alpha * xeff[:, sl] + beta)
+        d_traj = gscan.linrec1(A[:, sl], Bv, damp0)
+        d_prev = jnp.concatenate([damp0[:, None], d_traj[:, :-1]], axis=-1)
+        sig = xeff[:, sl] + fbgp[:, sl] * d_prev
+        for i, (g, dly) in enumerate(zip(GAINS, delayed)):
+            v = sig - g * dly
+            W = W.at[i, D + s:D + s + C].set(v[0])
+            W = W.at[NUM_ALLPASSES + i, D + s:D + s + C].set(v[1])
+            sig = g * v + dly
+        wets.append(sig)
+        damp0 = d_traj[:, -1]
+    wet = jnp.concatenate(wets, axis=-1)
+    new_hist = W[:, B:B + D]
+    d_last = damp0
 
     out = x * (1.0 - mix_t) + wet * mix_t
     new_state = SpringState(

@@ -48,10 +48,6 @@ def init_state(sample_rate: float, drive=0.3, warmth=0.3, mix=1.0) -> Saturation
 
 repeat_to_rate = ovs_mod.repeat_to_rate
 
-#: "auto" -> fused Pallas oversample+shape+DC kernel on TPU (one launch
-#: instead of ~12 scans; ops/pallas_fx.py), XLA scans elsewhere.
-IMPL = "auto"
-
 
 def saturate(x, drive, bias):
     """The tube transfer curve (saturation.rs:106-125)."""
@@ -63,13 +59,8 @@ def saturate(x, drive, bias):
 
 
 def process_block(state: SaturationState, x, targets, *, sample_rate: float,
-                  os_mode: int = 4, impl: str | None = None):
+                  os_mode: int = 4):
     """One block of the stereo saturator → ``(new_state, out[2, B])``."""
-    import jax
-
-    impl = IMPL if impl is None else impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     B = x.shape[-1]
     x = jnp.where(jnp.isfinite(x), x, 0.0)
     coeff = smoothing_coeff(sample_rate, 30.0)
@@ -83,21 +74,6 @@ def process_block(state: SaturationState, x, targets, *, sample_rate: float,
     held = frz.traj_all_below(
         bank.current[:, P_MIX], bank.target[:, P_MIX],
         jnp.float32(1.0 - coeff), B, 1e-4)
-
-    if impl == "pallas" and os_mode == 4:
-        # one fused kernel: smoothers + 4x halfband chains + shaper + DC + mix
-        from libgooey_tpu.ops import pallas_fx
-
-        packed = pallas_fx.pack_ovs4_dc(state.ovs, state.dc.x1, state.dc.y1)
-        out, nst = pallas_fx.saturation_block(
-            x, bank.current, bank.target, packed, coeff=coeff
-        )
-        new_ovs, dc_x1, dc_y1, sm_cur = pallas_fx.unpack_ovs4_dc(nst, state.ovs)
-        return SaturationState(
-            dc=DCBlockState(x1=dc_x1, y1=dc_y1),
-            ovs=frz.hold_where(held, state.ovs, new_ovs),
-            smooth=SmootherBank(current=sm_cur, target=bank.target),
-        ), out
 
     powers = jnp.power(np.float32(1.0 - coeff), jnp.arange(1, B + 1, dtype=jnp.float32))
 

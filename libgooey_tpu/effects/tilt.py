@@ -34,19 +34,8 @@ def init_state(sample_rate: float, cutoff=0.5, resonance=0.0) -> TiltState:
     return TiltState(svf=filters.SVFState.init((2,)), smooth=SmootherBank.init(vals))
 
 
-#: "auto" -> fused Pallas kernel on TPU (ops/pallas_fx.py tilt_block),
-#: XLA scans elsewhere.
-IMPL = "auto"
-
-
-def process_block(state: TiltState, x, targets, *, sample_rate: float,
-                  impl: str | None = None):
+def process_block(state: TiltState, x, targets, *, sample_rate: float):
     """One block of the stereo tilt filter → ``(new_state, out[2, B])``."""
-    import jax
-
-    impl = IMPL if impl is None else impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
     B = x.shape[-1]
     coeff = smoothing_coeff(sample_rate, 30.0)
     bank = state.smooth.with_targets(
@@ -66,27 +55,9 @@ def process_block(state: TiltState, x, targets, *, sample_rate: float,
     held = (jnp.abs(2.0 * _k_first - 1.0) < 0.001) & (
         jnp.abs(2.0 * _k_last - 1.0) < 0.001)
 
-    if impl == "pallas":
-        from libgooey_tpu.ops import pallas_fx
-
-        st = jnp.stack(
-            [state.svf.ic1, state.svf.ic2,
-             jnp.zeros(2, jnp.float32), jnp.zeros(2, jnp.float32)], axis=-1
-        )
-        out, nst = pallas_fx.tilt_block(
-            x, bank.current, bank.target, st,
-            coeff=coeff, sample_rate=sample_rate,
-        )
-        return TiltState(
-            svf=frz.hold_where(
-                held, state.svf,
-                filters.SVFState(ic1=nst[:, 0], ic2=nst[:, 1])),
-            smooth=SmootherBank(current=nst[:, 2:4], target=bank.target),
-        ), out
-    # op-for-op identical to the Pallas kernel's _traj / freq maps so the
-    # two paths produce bit-identical coefficient streams (the SVF rings at
-    # Q up to 8.5, so a 1-ulp coefficient difference is audible in the twin
-    # comparison): exp(log(q)*n) instead of power, exp(log(ratio)*t) maps
+    # coefficient streams as exp(log(q)*n) instead of power, and
+    # exp(log(ratio)*t) maps (the SVF rings at Q up to 8.5, so a 1-ulp
+    # coefficient difference is audible)
     n1 = jnp.arange(1, B + 1, dtype=jnp.float32)
     powers = jnp.exp(np.float32(np.log(1.0 - coeff)) * n1)
 

@@ -17,10 +17,6 @@ import jax.numpy as jnp
 
 from libgooey_tpu.ops.oversample import repeat_to_rate
 
-#: "xla" forces the scan path even on TPU (tests); anything else lets the
-#: chain (mixer/chain.py) use the fused Pallas kernel on TPU.
-IMPL = "auto"
-
 
 def process(x, drive, mix=1.0, oversample=None):
     """Apply the waveshaper over arbitrary-shape blocks (broadcasting)."""

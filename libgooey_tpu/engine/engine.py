@@ -5,7 +5,7 @@ instruments, a trigger queue, sequencers and LFOs routed by name, global
 effects (SoftLimiter default), a smoothed master gain (default 0.25) and a
 per-instrument smoothed pan.
 
-TPU architecture: instruments of the same family live in one device-resident
+Device architecture: instruments of the same family live in one device-resident
 *bank* (``[V, ...]`` state pytree); a named instrument is a voice slot.  The
 host engine is the control plane: it runs sequencers/trigger queues in exact
 arithmetic, stages parameter targets, and drives one jitted block step
@@ -35,7 +35,6 @@ from libgooey_tpu.core.constants import (
 from libgooey_tpu.core.smoother import (
     SmootherBank,
     smoothing_coeff,
-    smooth_advance,
     smooth_block,
     smooth_block_lazy,
 )
@@ -66,9 +65,6 @@ FX_MODULES = {
     "spring": fx_spring,
     "plate": fx_plate,
 }
-#: global-FX name -> mixer/chain.py effect id (for merged pallas runs)
-_FX_CHAIN_ID = {"saturation": 2, "lowpass": 0, "tilt": 4, "delay": 1,
-                "compressor": 3, "spring": 6, "plate": 9}
 
 FX_DEFAULT_TARGETS = {
     "saturation": [0.3, 0.3, 1.0],
@@ -142,12 +138,6 @@ FAMILY_STATIC = {
 }
 
 
-#: Mix-stage implementation: "xla" (default — fuses into the voice epilogue
-#: and is the GSPMD/multichip psum seam) or "pallas" (opt-in fused kernel,
-#: measured at parity; see the comment at the use site).
-MIX_IMPL = "xla"
-
-
 def _render_all(
     state: dict,
     events: dict,
@@ -162,7 +152,6 @@ def _render_all(
     fx_order: Tuple[str, ...] = (),
     sidechain_voice: int = -1,
     collect_sources: bool = False,
-    fused_banks: bool = True,
     psum_axis: Optional[str] = None,
 ):
     """One block over every instrument bank + mix + master + global FX.
@@ -172,15 +161,10 @@ def _render_all(
     order on the stereo bus before the pinned soft limiter.
     ``sidechain_voice``: global voice index feeding the compressor detector
     (-1 = self-keyed), mirroring the FFI's per-instrument sidechain source.
-    ``fused_banks``: static — allow the fused Pallas instrument-bank path
-    on TPU.  Multi-chip callers going through GSPMD (plain jit over a
-    sharded mesh) MUST pass False: a pallas_call does not partition under
-    GSPMD, so sharded state would be gathered to one chip.  The shard_map
-    path (``parallel.mesh.render_all_sharded``) instead runs this function
-    per-shard on LOCAL voice slices — there the fused kernels stay legal
-    (each shard launches its own pallas_call) and ``psum_axis`` names the
-    mesh axis to all-reduce the ``[2, B]`` mix over (SURVEY §2.10: the
-    final additive mix is the only cross-voice communication).
+    ``psum_axis``: under ``shard_map`` (``parallel.mesh.render_all_sharded``)
+    this function runs per shard on LOCAL voice slices, and ``psum_axis``
+    names the mesh axis to all-reduce the ``[2, B]`` mix over (SURVEY §2.10:
+    the final additive mix is the only cross-voice communication).
     """
     static = {k: dict(v) for k, v in family_static}
     new_state = dict(state)
@@ -206,63 +190,8 @@ def _render_all(
             * (events["lfo_phase"][:, None] + n[None, :] * events["lfo_inc"][:, None])
         ) * events["lfo_amount"][:, None]          # [8, B]
 
-    # --- kit mega-kernel batch: eligible families render through TWO merged
-    # pallas calls (pallas_voice.kit_render_fused) instead of one+ per
-    # family — the composed product step is launch-bound (~20 us per
-    # in-graph pallas call).  Eligibility mirrors each family's own fused
-    # gate; ineligible kinds (multi-trigger blocks, LFO-routed params,
-    # kick feedback path, oversized banks) fall through to the per-family
-    # path below unchanged.
-    from libgooey_tpu.ops import pallas_voice as _pv
-
-    kit_results = {}
-    if (
-        fused_banks
-        and _pv.IMPL != "xla"
-        and (jax.default_backend() == "tpu" or _pv.IMPL == "pallas")
-    ):
-        kit_kinds = []
-        for kind in kinds:
-            if kind not in ("kick", "snare", "hihat2", "bass", "tom2"):
-                continue
-            if any(r[1] == kind for r in lfo_routes):
-                continue
-            st = static.get(kind, {})
-            if kind == "kick" and (st.get("feedback_path", False)
-                                   or st.get("os_mode", 4) != 4):
-                continue
-            if kind in ("snare", "bass") and st.get("os_mode", 4) != 4:
-                continue
-            if events[kind + "_off"].ndim != 1:
-                continue
-            if state[kind].trig_sample.shape[0] > _pv.MAX_FUSED_VOICES:
-                continue
-            kit_kinds.append(kind)
-        if len(kit_kinds) >= 2:
-            kit_results = _pv.kit_render_fused(
-                {k: state[k] for k in kit_kinds},
-                {k: events[k + "_off"] for k in kit_kinds},
-                {k: events[k + "_vel"] for k in kit_kinds},
-                events["block_start"],
-                kinds=tuple(kit_kinds),
-                sample_rate=sample_rate,
-                block_size=block_size,
-                smooth_coeff=smooth_coeff,
-                kick_max_harmonics=static.get("kick", {}).get(
-                    "max_harmonics", 256),
-                snare_max_harmonics=static.get("snare", {}).get(
-                    "max_harmonics", 256),
-                bass_note_freq=(events.get("bass_freq")
-                                if "bass" in kit_kinds else None),
-            )
-
     voice_outs = []
     for kind in kinds:
-        if kind in kit_results:
-            bank_state, out = kit_results[kind]
-            new_state[kind] = bank_state
-            voice_outs.append(out)
-            continue
         mod = FAMILIES[kind]
         overrides = None
         kind_routes = [r for r in lfo_routes if r[1] == kind]
@@ -300,8 +229,6 @@ def _render_all(
                 }
         if kind == "bass" and "bass_freq" in events:
             extra["note_freq"] = events["bass_freq"]
-        if kind in ("kick", "snare", "hihat2", "bass", "tom2"):
-            extra["fused"] = fused_banks
         bank_state, out = mod.render_block(
             state[kind],
             events[kind + "_off"],
@@ -318,12 +245,10 @@ def _render_all(
         voice_outs.append(out)
 
     def _all_voices():
-        """[sum V, B] concat — only materialized by the paths that need a
-        single voice matrix (source scatter, pallas mix).  The default mix
-        below accumulates per family instead: concatenating the banks'
-        kernel outputs (each with its own layout) forces a relayout copy
-        per family — measured ~175 us/block of pure epilogue on the
-        64-voice product kit."""
+        """[sum V, B] concat — only materialized by the source scatter,
+        which needs a single voice matrix.  The mix below accumulates per
+        family instead, so the banks' outputs are never copied into one
+        matrix."""
         return jnp.concatenate(voice_outs, axis=0) if voice_outs else jnp.zeros(
             (0, block_size), jnp.float32
         )
@@ -345,7 +270,8 @@ def _render_all(
         # panned per-voice stereo frames routed through a [S, V] matrix into
         # mixer-graph source buses (the FFI pipeline's scatter, ffi.rs:1301)
         panned = jnp.stack([shaped * gl, shaped * gr], axis=1)       # [V,2,B]
-        sources = jnp.einsum("sv,vcb->scb", events["source_matrix"], panned)
+        sources = jnp.einsum("sv,vcb->scb", events["source_matrix"], panned,
+                             precision=jax.lax.Precision.HIGHEST)
         if psum_axis is not None:
             sources = jax.lax.psum(sources, psum_axis)
         voice_peaks = jnp.max(jnp.abs(shaped), axis=-1)              # [V]
@@ -353,78 +279,56 @@ def _render_all(
         new_state["gain"] = gain_bank
         return new_state, sources, all_voices, voice_peaks
 
-    total_v = sum(out.shape[0] for out in voice_outs)
-    if MIX_IMPL == "pallas" and total_v >= 8:
-        all_voices = _all_voices()
-        # Opt-in fused mix kernel (ops/pallas_fx.py mix_bank).  Measured AT
-        # PARITY with the XLA path on the 4,096-voice block (1.395 vs
-        # 1.380 ms/block): XLA already fuses the mix into the voice banks'
-        # elementwise epilogue, so there is no HBM round-trip to save.  The
-        # XLA path stays the default because its jnp.sum over the voice
-        # axis is what GSPMD turns into the multi-chip psum (SURVEY §2.10);
-        # a pallas_call does not auto-partition over a sharded mesh.
-        from libgooey_tpu.ops import pallas_fx
+    pan_bank, pan_slice = smooth_block_lazy(state["pan"], smooth_coeff, block_size)
+    gain_bank, gain_slice = smooth_block_lazy(state["gain"], smooth_coeff, block_size)
 
-        suml, sumr, mono_sum = pallas_fx.mix_bank(
-            all_voices,
-            state["pan"].current, state["pan"].target,
-            state["gain"].current, state["gain"].target,
-            coeff=smooth_coeff,
-        )
-        pan_bank = smooth_advance(state["pan"], smooth_coeff, block_size)
-        gain_bank = smooth_advance(state["gain"], smooth_coeff, block_size)
-        mix = jnp.stack([suml, sumr], axis=0)
-    else:
-        pan_bank, pan_slice = smooth_block_lazy(state["pan"], smooth_coeff, block_size)
-        gain_bank, gain_slice = smooth_block_lazy(state["gain"], smooth_coeff, block_size)
+    # per-family accumulation: each family's pan/gain/mix fuses into its
+    # own bank epilogue, no [sum V, B] concat/relayout (see _all_voices).
+    # Trajectories rebuild lazily per family slice (smooth_block_lazy):
+    # the slices are disjoint so no work repeats, and XLA keeps the
+    # rebuild in-register instead of round-tripping 4 full-bank [V, B]
+    # trajectory arrays through HBM.
+    def _mix_loop(pan_const: bool):
+        def f(_):
+            mixl = jnp.zeros(block_size, jnp.float32)
+            mixr = jnp.zeros(block_size, jnp.float32)
+            mono = jnp.zeros(block_size, jnp.float32)
+            idx = 0
+            for out in voice_outs:
+                V = out.shape[0]
+                if pan_const:
+                    glv, grv = dsp.pan_gains(
+                        state["pan"].target[idx:idx + V])
+                    gl, gr = glv[:, None], grv[:, None]
+                else:
+                    gl, gr = dsp.pan_gains(pan_slice(idx, idx + V))
+                shaped = out * gain_slice(idx, idx + V)
+                mixl = mixl + jnp.sum(shaped * gl, axis=0)
+                mixr = mixr + jnp.sum(shaped * gr, axis=0)
+                mono = mono + jnp.sum(shaped, axis=0)
+                idx += V
+            return mixl, mixr, mono
+        return f
 
-        # per-family accumulation: each family's pan/gain/mix fuses into its
-        # own bank epilogue, no [sum V, B] concat/relayout (see _all_voices).
-        # Trajectories rebuild lazily per family slice (smooth_block_lazy):
-        # the slices are disjoint so no work repeats, and XLA keeps the
-        # rebuild in-register instead of round-tripping 4 full-bank [V, B]
-        # trajectory arrays through HBM.
-        def _mix_loop(pan_const: bool):
-            def f(_):
-                mixl = jnp.zeros(block_size, jnp.float32)
-                mixr = jnp.zeros(block_size, jnp.float32)
-                mono = jnp.zeros(block_size, jnp.float32)
-                idx = 0
-                for out in voice_outs:
-                    V = out.shape[0]
-                    if pan_const:
-                        glv, grv = dsp.pan_gains(
-                            state["pan"].target[idx:idx + V])
-                        gl, gr = glv[:, None], grv[:, None]
-                    else:
-                        gl, gr = dsp.pan_gains(pan_slice(idx, idx + V))
-                    shaped = out * gain_slice(idx, idx + V)
-                    mixl = mixl + jnp.sum(shaped * gl, axis=0)
-                    mixr = mixr + jnp.sum(shaped * gr, axis=0)
-                    mono = mono + jnp.sum(shaped, axis=0)
-                    idx += V
-                return mixl, mixr, mono
-            return f
-
-        # Per-sample pan gains are two [V, B] transcendentals (~100 us/block
-        # at 4,096 voices — the mix reduce's dominant cost), but the settle
-        # snap makes the pan trajectory EXACTLY equal to the target once
-        # |delta * q| < eps at the block's first sample (|decayed| is
-        # monotone decreasing, so settled-at-0 means settled all block).
-        # Device-side branch: settled banks (the steady state — pan writes
-        # are rare) mix with [V] per-lane gains, identical values by the
-        # snap; unsettled blocks keep the exact per-sample path.
-        _q = jnp.float32(1.0) - jnp.asarray(smooth_coeff, jnp.float32)
-        pan_settled = jnp.all(
-            jnp.abs((state["pan"].current - state["pan"].target) * _q)
-            < SMOOTHER_SETTLE_EPS)
-        mixl, mixr, mono_sum = jax.lax.cond(
-            pan_settled, _mix_loop(True), _mix_loop(False), None)
-        mix = jnp.stack([mixl, mixr], axis=0)
+    # Per-sample pan gains are two [V, B] transcendentals (the mix
+    # reduce's dominant cost), but the settle
+    # snap makes the pan trajectory EXACTLY equal to the target once
+    # |delta * q| < eps at the block's first sample (|decayed| is
+    # monotone decreasing, so settled-at-0 means settled all block).
+    # Device-side branch: settled banks (the steady state — pan writes
+    # are rare) mix with [V] per-lane gains, identical values by the
+    # snap; unsettled blocks keep the exact per-sample path.
+    _q = jnp.float32(1.0) - jnp.asarray(smooth_coeff, jnp.float32)
+    pan_settled = jnp.all(
+        jnp.abs((state["pan"].current - state["pan"].target) * _q)
+        < SMOOTHER_SETTLE_EPS)
+    mixl, mixr, mono_sum = jax.lax.cond(
+        pan_settled, _mix_loop(True), _mix_loop(False), None)
+    mix = jnp.stack([mixl, mixr], axis=0)
 
     if psum_axis is not None:
         # the only cross-voice communication in the whole engine: one
-        # [2, B] + [B] all-reduce per block over ICI; the bus below then
+        # [2, B] + [B] all-reduce per block; the bus below then
         # runs replicated on every shard from identical post-psum inputs
         mix = jax.lax.psum(mix, psum_axis)
         mono_sum = jax.lax.psum(mono_sum, psum_axis)
@@ -434,43 +338,8 @@ def _render_all(
     mono = mono_sum * master_traj
 
     # --- global FX chain (user-ordered; limiter pinned last) -------------------
-    # On TPU, maximal runs of >=2 mergeable effects execute as ONE merged
-    # pallas_call (ops/pallas_chain.py) — the bus is launch-bound at
-    # ~20 us per in-graph call.  The sidechained compressor and the plate
-    # keep their own calls and split the chain into runs.
-    from libgooey_tpu.mixer.chain import FUSE_RUNS as _fuse
-
-    fx_list = list(fx_order)
-    use_fused = (_fuse != "off" and jax.default_backend() == "tpu"
-                 and len(fx_list) >= 2)
-    i = 0
-    while i < len(fx_list):
-        fx_name = fx_list[i]
+    for fx_name in fx_order:
         sidechained = fx_name == "compressor" and sidechain_voice >= 0
-        eid = _FX_CHAIN_ID.get(fx_name, -1)
-        if use_fused and not sidechained and eid >= 0:
-            from libgooey_tpu.ops import pallas_chain as _pc
-
-            if _pc.mergeable(eid, False):
-                j = i
-                while j < len(fx_list):
-                    nm = fx_list[j]
-                    e2 = _FX_CHAIN_ID.get(nm, -1)
-                    if (e2 < 0 or not _pc.mergeable(e2, False)
-                            or (nm == "compressor" and sidechain_voice >= 0)):
-                        break
-                    j += 1
-                if j - i >= 2:
-                    run_names = fx_list[i:j]
-                    sts, bus = _pc.process_run(
-                        [(_FX_CHAIN_ID[nm], False) for nm in run_names],
-                        [state["fx_" + nm] for nm in run_names], bus,
-                        [events["fx_" + nm] for nm in run_names],
-                        sample_rate=sample_rate)
-                    for nm, st in zip(run_names, sts):
-                        new_state["fx_" + nm] = st
-                    i = j
-                    continue
         mod = FX_MODULES[fx_name]
         kw = {}
         if sidechained:
@@ -478,7 +347,7 @@ def _render_all(
                 sc = _voice_row(sidechain_voice)   # static index resolution
             else:
                 # the owning shard masks its row out; one [B] all-reduce
-                # rides ICI with the mix psum (the ONLY other cross-voice
+                # rides with the mix psum (the ONLY other cross-voice
                 # traffic), and the compressor then runs replicated from
                 # identical inputs on every shard
                 sc = jnp.zeros(block_size, jnp.float32)
@@ -489,7 +358,8 @@ def _render_all(
                     if 0 <= remaining < Vf:
                         mask = (_global_rows(Vl) == remaining).astype(
                             jnp.float32)
-                        sc = jnp.einsum("v,vb->b", mask, vout)
+                        sc = jnp.einsum("v,vb->b", mask, vout,
+                                        precision=jax.lax.Precision.HIGHEST)
                         break
                     remaining -= Vf
                 sc = jax.lax.psum(sc, psum_axis)
@@ -498,7 +368,6 @@ def _render_all(
             state["fx_" + fx_name], bus, events["fx_" + fx_name],
             sample_rate=sample_rate, **kw,
         )
-        i += 1
 
     out = limiter.soft_limit(bus, limiter_threshold)
     mono = limiter.soft_limit(mono, limiter_threshold)
@@ -511,8 +380,7 @@ def _render_all(
 
 # limiter_threshold is deliberately NOT here: it only feeds elementwise
 # soft_limit math, and marking it static would retrace the whole engine
-# for every distinct host-automated threshold value (ADVICE r1, gooey.py
-# had the same bug).
+# for every distinct host-automated threshold value.
 _STATIC_NAMES = (
     "kinds",
     "sample_rate",
@@ -523,7 +391,6 @@ _STATIC_NAMES = (
     "fx_order",
     "sidechain_voice",
     "collect_sources",
-    "fused_banks",
     "psum_axis",
 )
 
@@ -544,12 +411,8 @@ def render_many(state: dict, events_stacked: dict, **static):
         st2, out, _mono = _render_all(st, ev, **static)
         return st2, out
 
-    # unroll=2: halves the per-iteration xs-slice / carry-copy overhead
-    # (~90 us/block of tiny copy/DUS kernels in the device trace) and lets
-    # XLA schedule across adjacent blocks; measured 2290 -> 2110 us/block
-    # on the 4,096-voice kit together with the linrec1 bank rerouting
-    # (ops/scan.py _BANK1_MAX_V).  Higher unroll factors regress (compile
-    # blow-up, no further win at unroll=4).
+    # unroll=2: halves the per-iteration xs-slice / carry-copy overhead and
+    # lets XLA schedule across adjacent blocks
     return jax.lax.scan(step, state, events_stacked, unroll=2)
 
 

@@ -8,7 +8,7 @@ An LFO is a sine of a free-running phase — use-then-advance — whose value
 through ``set_bipolar`` (value*depth clipped to ±1 → normalized 0-1 target).
 The smoothers then chase those per-sample targets at their usual 15 ms.
 
-TPU mapping: the host tracks each LFO's phase (exact, f64); the device gets
+Host/device mapping: the host tracks each LFO's phase (exact, f64); the device gets
 ``phase0 + n*inc`` per block and evaluates the sine trajectory vectorized.
 Routed parameters swap their closed-form smoother trajectory for a one-pole
 scan toward the LFO-driven target trajectory (instruments.common overrides).

@@ -6,8 +6,8 @@ buffer duration), stop_if_overruns, and the stereo→N-channel frame
 mapping (engine_output.rs:446-466: 1ch = downmix, 2ch = L/R, extra
 surround channels get the downmix).
 
-TPU-native redesign: the reference ticks the engine one sample at a time
-inside the OS audio callback.  On TPU the engine renders whole blocks on
+Block redesign: the reference ticks the engine one sample at a time
+inside the OS audio callback.  Here the engine renders whole blocks on
 the device, so this adapter instead runs a *prefetch pipeline*: a worker
 thread keeps up to ``prefetch_blocks`` rendered blocks queued while the
 device callback (``fill``) just copies out of the queue — device compile

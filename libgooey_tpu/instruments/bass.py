@@ -23,8 +23,7 @@ from libgooey_tpu.core import dsp
 from libgooey_tpu.core.envelope import ADSR, amplitude
 from libgooey_tpu.core.smoother import SmootherBank
 from libgooey_tpu.effects import waveshaper as ws
-from libgooey_tpu.instruments.common import (NEVER, VoiceBlock,
-                                             use_ws_bank as _use_ws_bank)
+from libgooey_tpu.instruments.common import NEVER, VoiceBlock
 from libgooey_tpu.ops.oversample import OversamplerState, stateful as stateful_oversample
 from libgooey_tpu.ops import filters, osc
 from libgooey_tpu.ops import scan as gscan
@@ -173,7 +172,6 @@ def render_block(
     note_freq=None,
     os_mode: int = 4,
     overrides=None,
-    fused: bool = True,
 ):
     """Render one block for the bass bank → ``(new_state, out[V, B])``.
 
@@ -181,28 +179,6 @@ def render_block(
     (sequencer per-step notes set the frequency before triggering).
     """
     sr = sample_rate
-    # Fused bank path (ops/pallas_voice.py): the swept SVF keeps its
-    # sequential kernel; oscillators/bleps/drive fuse into one pallas_call.
-    import jax as _jax
-
-    from libgooey_tpu.ops import pallas_voice as _pv
-
-    trig_arr = jnp.asarray(trig_offset)
-    if (
-        fused
-        and _pv.IMPL != "xla"
-        and (_jax.default_backend() == "tpu" or _pv.IMPL == "pallas")
-        and trig_arr.ndim == 1
-        and overrides is None
-        and os_mode == 4
-        and (note_freq is None or jnp.ndim(note_freq) == 1)
-        and trig_arr.shape[0] <= _pv.MAX_FUSED_VOICES
-    ):
-        return _pv.bass_render_fused(
-            state, trig_offset, trig_velocity, block_start,
-            sample_rate=sr, block_size=block_size, smooth_coeff=smooth_coeff,
-            note_freq=note_freq,
-        )
 
     vb = VoiceBlock(state.params, trig_offset, block_start, block_size,
                     smooth_coeff, PARAM_INDEX, overrides=overrides)
@@ -271,26 +247,14 @@ def render_block(
     # --- pre-filter saturation ---------------------------------------------------
     od = ptraj("overdrive")
     drive = 1.0 + od * 9.0
-    if _use_ws_bank(mix, os_mode):
-        # fused voice-bank 4x waveshaper (ops/pallas_fx.ws4_bank; see
-        # instruments/snare.py) — ws.process semantics with mix == 1
-        from libgooey_tpu.ops import pallas_fx
-
-        sat, nst = pallas_fx.ws4_bank(mix, drive,
-                                      pallas_fx.pack_ws4_bank(state.ovs))
-        shaped = jnp.where(drive <= 1.0, mix, sat)
-        shaped = jnp.where(jnp.isfinite(mix), shaped, 0.0)
-        saturated = jnp.where(od > 0.001, shaped, mix)
-        ws_ovs_out = pallas_fx.unpack_ws4_bank(nst, state.ovs)
-    else:
-        os_wrap, os_box = stateful_oversample(state.ovs, os_mode)
-        saturated = jnp.where(
-            od > 0.001,
-            ws.process(mix, drive, mix=1.0,
-                       oversample=None if os_mode == 1 else os_wrap),
-            mix,
-        )
-        ws_ovs_out = os_box["state"]
+    os_wrap, os_box = stateful_oversample(state.ovs, os_mode)
+    saturated = jnp.where(
+        od > 0.001,
+        ws.process(mix, drive, mix=1.0,
+                   oversample=None if os_mode == 1 else os_wrap),
+        mix,
+    )
+    ws_ovs_out = os_box["state"]
 
     # --- swept SVF low-pass --------------------------------------------------------
     fenv = amplitude(ADSR(0.001, fd, 0.0, fd * 0.1, 1.0, fc), elapsed)

@@ -2,7 +2,7 @@
 
 Every reference instrument follows the same Config/Params pattern
 (SURVEY.md §2.5): smoothed normalized params, trigger-time snapshots,
-per-sample time-based evaluation.  ``VoiceBlock`` packages the TPU
+per-sample time-based evaluation.  ``VoiceBlock`` packages the batched
 realization used by all instrument banks:
 
 * closed-form smoothed-parameter trajectories with the reference's exact
@@ -201,26 +201,7 @@ def fm_snap_block(phase0, elapsed, sample_rate, *, attack=0.001, decay=0.008,
     env = jnp.where(active, env, 0.0)
     mod = jnp.sin(2.0 * jnp.pi * modulator_freq * t)
     f_inst = carrier_freq + modulation_index * mod * env
-    from libgooey_tpu.ops import scan as gscan
-
     dphi = jnp.where(active, 2.0 * jnp.pi * f_inst / sample_rate, 0.0)
-    phase = jnp.asarray(phase0, jnp.float32)[..., None] + gscan.cumsum_bank(dphi)
+    phase = jnp.asarray(phase0, jnp.float32)[..., None] + jnp.cumsum(dphi, axis=-1)
     y = jnp.sin(phase) * env
     return jnp.mod(phase[..., -1], 2.0 * jnp.pi), y
-
-
-def use_ws_bank(x, os_mode: int, min_voices: int = 128) -> bool:
-    """Gate for the fused voice-bank 4x waveshaper (pallas_fx.ws4_bank).
-
-    Mirrors the fbws fast-path gate: engaged on TPU for wide banks unless
-    pallas_voice.IMPL == "xla" (the twin tests' XLA reference side), or
-    forced everywhere with IMPL == "pallas" (interpret-mode CPU tests).
-    """
-    import jax
-
-    from libgooey_tpu.ops import pallas_voice as pv
-
-    if os_mode != 4 or getattr(x, "ndim", 0) != 2 or x.shape[0] < min_voices:
-        return False
-    return ((jax.default_backend() == "tpu" and pv.IMPL != "xla")
-            or pv.IMPL == "pallas")

@@ -13,7 +13,7 @@ Behavioral reference: src/instruments/granulator.rs (1,154 LoC).
 * drive = fixed-4x Waveshaper with mix as the knob (rs:26-32, 730-739);
 * cloud trigger with duration 50-8000 ms; deterministic XorShift32 + set_seed.
 
-TPU split: *all* randomness happens at grain-spawn (control rate), so the
+Host/device split: *all* randomness happens at grain-spawn (control rate), so the
 host schedules spawns/steals exactly (same XorShift32, same draw order) and
 ships them as per-block events; each grain's audio is then a pure function
 of samples-since-spawn — windowed cubic gathers from the device buffer,
@@ -32,7 +32,6 @@ import numpy as np
 from libgooey_tpu.core.rng import XorShift32
 from libgooey_tpu.core.smoother import SmootherBank, smoothing_coeff
 from libgooey_tpu.ops import scan as gscan
-from libgooey_tpu.ops import pallas_grain
 from libgooey_tpu.ops.oversample import OversamplerState, process as ovs_process
 
 MAX_GRAINS = 64
@@ -182,14 +181,9 @@ def render_block(
     sample_rate: float,
     block_size: int,
     smooth_coeff: float,
-    grain_read: str = "gather",
     overrides=None,
 ):
-    """Render one block → ``(new_state, out[B])`` (mono instrument).
-
-    ``grain_read`` (static): "gather" (XLA, exact-oracle path) or
-    "pallas" (contiguous-window TPU kernel, same f32 precision class).
-    """
+    """Render one block → ``(new_state, out[B])`` (mono instrument)."""
     B = block_size
     n_local = jnp.arange(B, dtype=jnp.int32)
     block_start = jnp.asarray(block_start, jnp.int32)
@@ -260,26 +254,18 @@ def render_block(
         jnp.maximum(jnp.sin(np.pi * phase), 0.0), st.shape[:, None]
     )
     L = st.buffer.shape[0]
-    if grain_read == "pallas":
-        # positions are linear per grain: read via the contiguous-window
-        # Pallas kernel (ops.pallas_grain; f32-rounding-equivalent to the
-        # gather path, ~5x faster on a v5e at 4k grains)
-        age0 = (block_start - st.spawn_sample).astype(jnp.float32)
-        p0g = st.src_pos + st.step * age0
-        sample = pallas_grain.grain_read_cubic(st.buffer, p0g, st.step, B=B)
-    else:
-        pos = st.src_pos[:, None] + st.step[:, None] * age
-        pos = jnp.clip(pos, 0.0, L - 1.0)
-        i1 = jnp.floor(pos).astype(jnp.int32)
-        frac = pos - jnp.floor(pos)
-        p0 = st.buffer[jnp.clip(i1 - 1, 0, L - 1)]
-        p1 = st.buffer[i1]
-        p2 = st.buffer[jnp.clip(i1 + 1, 0, L - 1)]
-        p3 = st.buffer[jnp.clip(i1 + 2, 0, L - 1)]
-        a0 = -0.5 * p0 + 1.5 * p1 - 1.5 * p2 + 0.5 * p3
-        a1 = p0 - 2.5 * p1 + 2.0 * p2 - 0.5 * p3
-        a2 = -0.5 * p0 + 0.5 * p2
-        sample = ((a0 * frac + a1) * frac + a2) * frac + p1
+    pos = st.src_pos[:, None] + st.step[:, None] * age
+    pos = jnp.clip(pos, 0.0, L - 1.0)
+    i1 = jnp.floor(pos).astype(jnp.int32)
+    frac = pos - jnp.floor(pos)
+    p0 = st.buffer[jnp.clip(i1 - 1, 0, L - 1)]
+    p1 = st.buffer[i1]
+    p2 = st.buffer[jnp.clip(i1 + 1, 0, L - 1)]
+    p3 = st.buffer[jnp.clip(i1 + 2, 0, L - 1)]
+    a0 = -0.5 * p0 + 1.5 * p1 - 1.5 * p2 + 0.5 * p3
+    a1 = p0 - 2.5 * p1 + 2.0 * p2 - 0.5 * p3
+    a2 = -0.5 * p0 + 0.5 * p2
+    sample = ((a0 * frac + a1) * frac + a2) * frac + p1
 
     contrib = jnp.where(active, sample * window * rel_gain * st.vel[:, None], 0.0)
     raw = jnp.sum(contrib, axis=0)                        # [B]

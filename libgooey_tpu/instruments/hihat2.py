@@ -13,7 +13,7 @@ Behavioral reference: src/instruments/hihat2.rs (592 LoC).  Signal path
   asymmetric smoother (instant up, 100-sample down);
 * * velocity * 0.35, TPT SVF highpass at `tone`, then volume.
 
-TPU mapping: phase accumulation is a per-block cumulative sum with carried
+Block mapping: phase accumulation is a per-block cumulative sum with carried
 phase and reset masks; the asymmetric smoother is a max-affine scan
 (ops.scan.maxlin); biquads run as DF-I recurrences (ops.filters).
 """
@@ -147,28 +147,9 @@ def render_block(
     block_size: int,
     smooth_coeff: float,
     overrides=None,
-    fused: bool = True,
 ):
     """Render one block for the HiHat2 bank → ``(new_state, out[V, B])``."""
     sr = sample_rate
-    # Fused single-kernel bank path (ops/pallas_voice.py).
-    import jax as _jax
-
-    from libgooey_tpu.ops import pallas_voice as _pv
-
-    trig_arr = jnp.asarray(trig_offset)
-    if (
-        fused
-        and _pv.IMPL != "xla"
-        and (_jax.default_backend() == "tpu" or _pv.IMPL == "pallas")
-        and trig_arr.ndim == 1
-        and overrides is None
-        and trig_arr.shape[0] <= _pv.MAX_FUSED_VOICES
-    ):
-        return _pv.hihat2_render_fused(
-            state, trig_offset, trig_velocity, block_start,
-            sample_rate=sr, block_size=block_size, smooth_coeff=smooth_coeff,
-        )
 
     vb = VoiceBlock(state.params, trig_offset, block_start, block_size,
                     smooth_coeff, PARAM_INDEX, overrides=overrides)

@@ -13,7 +13,7 @@ Behavioral reference: src/instruments/kick.rs (1,517 LoC).  Architecture
 * master amplitude envelope with curve, velocity->decay scaling
   ``1 - 0.5*v^2`` (kick.rs:983) and velocity->amp ``sqrt(v)`` (kick.rs:1219).
 
-TPU realization: every per-sample quantity is a pure function of
+Block realization: every per-sample quantity is a pure function of
 (samples-since-trigger, smoothed-parameter trajectory), so the whole voice
 bank renders as one fused vectorized block; the only sequential pieces are
 the small linear filter scans and the waveshaper's envelope follower.
@@ -231,7 +231,6 @@ def render_block(
     feedback_path: bool = False,
     os_mode: int = 4,
     overrides=None,
-    fused: bool = True,
 ):
     """Render one block for the whole voice bank.
 
@@ -250,29 +249,6 @@ def render_block(
     """
     B = block_size
     sr = sample_rate
-    # Fused two-kernel bank path (ops/pallas_voice.py): same math, ~20x
-    # fewer kernel launches.  Eligibility mirrors the kernel's scope; the
-    # XLA graph below remains the behavioral twin (and the CPU/test path).
-    import jax as _jax
-
-    from libgooey_tpu.ops import pallas_voice as _pv
-
-    trig_arr = jnp.asarray(trig_offset)
-    if (
-        fused
-        and _pv.IMPL != "xla"
-        and (_jax.default_backend() == "tpu" or _pv.IMPL == "pallas")
-        and trig_arr.ndim == 1
-        and overrides is None
-        and not feedback_path
-        and os_mode == 4
-        and trig_arr.shape[0] <= _pv.MAX_FUSED_VOICES
-    ):
-        return _pv.kick_render_fused(
-            state, trig_offset, trig_velocity, block_start,
-            sample_rate=sr, block_size=B, smooth_coeff=smooth_coeff,
-            max_harmonics=max_harmonics,
-        )
 
     vb = VoiceBlock(state.params, trig_offset, block_start, B, smooth_coeff, PARAM_INDEX,
                     overrides=overrides)

@@ -11,7 +11,7 @@ Behavioral reference: src/instruments/sampler.rs (356 LoC).
   transport-quantized pattern start via schedule_start/activate_start_if_due
   (rs:252-272).
 
-TPU layout: slot PCM lives in one device arena ``[A, 2]``; a voice's audio
+Device layout: slot PCM lives in one device arena ``[A, 2]``; a voice's audio
 is a pure function of samples-since-start (gathered stereo frames with the
 edge fade), so the whole 32-voice pool renders as one batched gather.  The
 host mirrors voice allocation (it knows every voice's end sample exactly).
@@ -79,13 +79,8 @@ def render_block(
     *,
     sample_rate: float,
     block_size: int,
-    voice_read: str = "gather",
 ):
-    """Render one block → ``(new_state, out[2, B])``.
-
-    ``voice_read`` (static): "gather" (XLA) or "pallas" (contiguous-window
-    kernel, ops.pallas_grain.sampler_read_linear — same f32 class).
-    """
+    """Render one block → ``(new_state, out[2, B])``."""
     B = block_size
     n_local = jnp.arange(B, dtype=jnp.int32)
     block_start = jnp.asarray(block_start, jnp.int32)
@@ -116,20 +111,12 @@ def render_block(
 
     # linear-interp stereo read (sampler.rs frame()) with position clamp
     posc = jnp.clip(pos, 0.0, end - 1.0)
-    if voice_read == "pallas":
-        from libgooey_tpu.ops import pallas_grain
-
-        age0 = (block_start - start).astype(jnp.float32)
-        frame = pallas_grain.sampler_read_linear(
-            st.arena, base, frames, age0, inc, B=B
-        )
-    else:
-        i0 = jnp.floor(posc).astype(jnp.int32)
-        i1 = jnp.minimum(i0 + 1, (end - 1.0).astype(jnp.int32))
-        frac = (posc - jnp.floor(posc))[..., None]
-        f0 = st.arena[base[:, None] + i0]     # [V,B,2]
-        f1 = st.arena[base[:, None] + i1]
-        frame = f0 + (f1 - f0) * frac
+    i0 = jnp.floor(posc).astype(jnp.int32)
+    i1 = jnp.minimum(i0 + 1, (end - 1.0).astype(jnp.int32))
+    frac = (posc - jnp.floor(posc))[..., None]
+    f0 = st.arena[base[:, None] + i0]     # [V,B,2]
+    f1 = st.arena[base[:, None] + i1]
+    frame = f0 + (f1 - f0) * frac
 
     # 32-frame edge fade click-guard (rs:127-135)
     gain = jnp.minimum(

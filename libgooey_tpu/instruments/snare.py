@@ -30,9 +30,7 @@ from libgooey_tpu.core import dsp
 from libgooey_tpu.core.envelope import ADSR, amplitude
 from libgooey_tpu.core.smoother import SmootherBank
 from libgooey_tpu.effects import waveshaper as ws
-from libgooey_tpu.instruments.common import (NEVER, VoiceBlock,
-                                             phase_mod_env,
-                                             use_ws_bank as _use_ws_bank)
+from libgooey_tpu.instruments.common import NEVER, VoiceBlock, phase_mod_env
 from libgooey_tpu.ops import filters, osc
 from libgooey_tpu.ops.oversample import OversamplerState, stateful as stateful_oversample
 
@@ -197,31 +195,9 @@ def render_block(
     max_harmonics: int = 256,
     os_mode: int = 4,
     overrides=None,
-    fused: bool = True,
 ):
     """Render one block for the snare bank → ``(new_state, out[V, B])``."""
     sr = sample_rate
-    # Fused bank path (ops/pallas_voice.py): the Chamberlin keeps its
-    # sequential kernel; everything else collapses into two pallas_calls.
-    import jax as _jax
-
-    from libgooey_tpu.ops import pallas_voice as _pv
-
-    trig_arr = jnp.asarray(trig_offset)
-    if (
-        fused
-        and _pv.IMPL != "xla"
-        and (_jax.default_backend() == "tpu" or _pv.IMPL == "pallas")
-        and trig_arr.ndim == 1
-        and overrides is None
-        and os_mode == 4
-        and trig_arr.shape[0] <= _pv.MAX_FUSED_VOICES
-    ):
-        return _pv.snare_render_fused(
-            state, trig_offset, trig_velocity, block_start,
-            sample_rate=sr, block_size=block_size, smooth_coeff=smooth_coeff,
-            max_harmonics=max_harmonics,
-        )
 
     vb = VoiceBlock(state.params, trig_offset, block_start, block_size,
                     smooth_coeff, PARAM_INDEX, overrides=overrides)
@@ -315,24 +291,10 @@ def render_block(
 
     # --- overdrive: plain tanh waveshaper, drive = 1 + od*9 (snare.rs:1166) ---
     drive = 1.0 + ptraj("overdrive") * 9.0
-    if _use_ws_bank(total, os_mode):
-        # fused voice-bank kernel: the whole 4x chain + tanh(v*d)*comp in
-        # vregs (ops/pallas_fx.ws4_bank) — the XLA oversampler's
-        # per-section intermediates cost ~275 us/block at headline voice
-        # counts, the kernel ~45 us.  Same bypass/finite semantics as
-        # ws.process with mix == 1.
-        from libgooey_tpu.ops import pallas_fx
-
-        sat, nst = pallas_fx.ws4_bank(total, drive,
-                                      pallas_fx.pack_ws4_bank(state.ovs))
-        ws_ovs_out = pallas_fx.unpack_ws4_bank(nst, state.ovs)
-        shaped = jnp.where(drive <= 1.0, total, sat)
-        shaped = jnp.where(jnp.isfinite(total), shaped, 0.0)
-    else:
-        os_wrap, os_box = stateful_oversample(state.ovs, os_mode)
-        shaped = ws.process(total, drive, mix=1.0,
-                            oversample=None if os_mode == 1 else os_wrap)
-        ws_ovs_out = os_box["state"]
+    os_wrap, os_box = stateful_oversample(state.ovs, os_mode)
+    shaped = ws.process(total, drive, mix=1.0,
+                        oversample=None if os_mode == 1 else os_wrap)
+    ws_ovs_out = os_box["state"]
 
     amp_env = amplitude(
         ADSR(0.001, jnp.maximum(amp_decay_s, 0.001), 0.0, 1.0, 1.0, amp_curve), elapsed

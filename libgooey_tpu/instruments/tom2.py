@@ -131,33 +131,11 @@ def render_block(
     smooth_coeff: float = 0.0,  # unused; uniform instrument signature
     triangle_enabled: bool = True,
     overrides=None,  # Tom2 is not Modulatable in the reference; accepted+ignored
-    fused: bool = True,
 ):
     """Render one block for the Tom2 bank → ``(new_state, out[V, B])``."""
     del trig_velocity, smooth_coeff
     sr = sample_rate
     B = block_size
-
-    # Fused source-stage kernel (ops/pallas_voice.py tom2_sources_fused):
-    # envelope/pitch/click/triangle/morph collapse into one pallas_call; the
-    # bandpass + membrane recurrences and the output composition below are
-    # SHARED between both paths.  The resonators deliberately stay on the
-    # sample-sequential bank-kernel path: they ring across blocks, so scan
-    # reassociation inside a fused kernel compounds to ~1e-3 within a few
-    # blocks (measured) — the same reason snare's Chamberlin runs outside
-    # its fused kernel.  The all-XLA graph remains the behavioral twin.
-    import jax as _jax
-
-    from libgooey_tpu.ops import pallas_voice as _pv
-
-    trig_arr = jnp.asarray(trig_offset)
-    use_fused = (
-        fused
-        and _pv.IMPL != "xla"
-        and (_jax.default_backend() == "tpu" or _pv.IMPL == "pallas")
-        and trig_arr.ndim == 1
-        and trig_arr.shape[0] <= _pv.MAX_FUSED_VOICES
-    )
 
     n_local = jnp.arange(B, dtype=jnp.int32)
     trig_offset = jnp.asarray(trig_offset, jnp.int32)
@@ -182,71 +160,64 @@ def render_block(
 
     p = lambda name: state.params[:, PARAM_INDEX[name]][:, None]  # [V,1]
 
-    if use_fused:
-        front, mixed, env, main_done, fade_factor, modulated_freq = (
-            _pv.tom2_sources_fused(
-                state, trig_arr, block_start, sample_rate=sr, block_size=B,
-                triangle_enabled=triangle_enabled))
-        new_trig, new_decay, new_tri_phase, morph_state = front
-    else:
-        decay_new = (DECAY_MIN_MS + (state.params[:, PARAM_INDEX["decay"]] / 100.0)
-                     * (DECAY_MAX_MS - DECAY_MIN_MS)) * 0.001
-        decay_s = jnp.where(after, decay_new[:, None], state.decay_s[:, None])
+    decay_new = (DECAY_MIN_MS + (state.params[:, PARAM_INDEX["decay"]] / 100.0)
+                 * (DECAY_MAX_MS - DECAY_MIN_MS)) * 0.001
+    decay_s = jnp.where(after, decay_new[:, None], state.decay_s[:, None])
 
-        # --- envelope: [(1, 1ms, 0.8), (0, decay, -0.83)] ---------------------
-        attack_s = 0.001
-        in_attack = elapsed < attack_s
-        env = jnp.where(
-            in_attack,
-            max_curve(elapsed / attack_s, 0.8),
-            1.0 - max_curve(jnp.clip((elapsed - attack_s) / decay_s, 0.0, 1.0), -0.83),
-        )
-        env = jnp.where(elapsed < 0.0, 0.0, env)
-        env_complete = elapsed >= (attack_s + decay_s)
+    # --- envelope: [(1, 1ms, 0.8), (0, decay, -0.83)] ---------------------
+    attack_s = 0.001
+    in_attack = elapsed < attack_s
+    env = jnp.where(
+        in_attack,
+        max_curve(elapsed / attack_s, 0.8),
+        1.0 - max_curve(jnp.clip((elapsed - attack_s) / decay_s, 0.0, 1.0), -0.83),
+    )
+    env = jnp.where(elapsed < 0.0, 0.0, env)
+    env_complete = elapsed >= (attack_s + decay_s)
 
-        # --- pitch --------------------------------------------------------------
-        base_freq = tune_to_freq(p("tune")) * dsp.tuning_to_multiplier(p("tuning"))
-        bend_scaled = (p("bend") / 100.0) * 2.0
-        pitch_mod = jnp.square(env * bend_scaled)
-        raw_freq = base_freq * (1.0 + pitch_mod)
+    # --- pitch --------------------------------------------------------------
+    base_freq = tune_to_freq(p("tune")) * dsp.tuning_to_multiplier(p("tuning"))
+    bend_scaled = (p("bend") / 100.0) * 2.0
+    pitch_mod = jnp.square(env * bend_scaled)
+    raw_freq = base_freq * (1.0 + pitch_mod)
 
-        past_attack = (elapsed >= attack_s) | (env > 0.9)
-        main_done = env_complete | (past_attack & (raw_freq < MIN_AUDIBLE_FREQ))
-        fade_factor = jnp.where(
-            past_attack & (raw_freq < FADE_START_FREQ),
-            (raw_freq - MIN_AUDIBLE_FREQ) / (FADE_START_FREQ - MIN_AUDIBLE_FREQ),
-            1.0,
-        )
-        modulated_freq = jnp.maximum(raw_freq, FREQ_MIN)
+    past_attack = (elapsed >= attack_s) | (env > 0.9)
+    main_done = env_complete | (past_attack & (raw_freq < MIN_AUDIBLE_FREQ))
+    fade_factor = jnp.where(
+        past_attack & (raw_freq < FADE_START_FREQ),
+        (raw_freq - MIN_AUDIBLE_FREQ) / (FADE_START_FREQ - MIN_AUDIBLE_FREQ),
+        1.0,
+    )
+    modulated_freq = jnp.maximum(raw_freq, FREQ_MIN)
 
-        # --- sources ------------------------------------------------------------
-        click_out = morph.click_block(elapsed_i) * 1.1
+    # --- sources ------------------------------------------------------------
+    click_out = morph.click_block(elapsed_i) * 1.1
 
-        tri_inc = modulated_freq / sr
-        tri_phase = gscan.phase_cumsum_reset(tri_inc, at_trig, state.tri_phase)
-        tri_out = (
-            morph.triangle_from_phase(jnp.mod(tri_phase - tri_inc, 1.0)) * 0.5
-            if triangle_enabled
-            else jnp.zeros_like(click_out)
-        )
+    tri_inc = modulated_freq / sr
+    tri_phase = gscan.phase_cumsum_reset(tri_inc, at_trig, state.tri_phase)
+    tri_out = (
+        morph.triangle_from_phase(jnp.mod(tri_phase - tri_inc, 1.0)) * 0.5
+        if triangle_enabled
+        else jnp.zeros_like(click_out)
+    )
 
-        mix_control = (p("tone") / 100.0) * 2.0 - 1.0
-        color_midi = 30.0 + (p("color") / 100.0) * 20.0
-        color_freq_1 = morph.mtof(color_midi)
-        morph_state, morph_out = morph.morph_block(
-            state.morph, modulated_freq, mix_control + jnp.zeros_like(env),
-            color_freq_1 + jnp.zeros_like(env), p("tone") + jnp.zeros_like(env),
-            elapsed_i, at_trig, sr,
-        )
+    mix_control = (p("tone") / 100.0) * 2.0 - 1.0
+    color_midi = 30.0 + (p("color") / 100.0) * 20.0
+    color_freq_1 = morph.mtof(color_midi)
+    morph_state, morph_out = morph.morph_block(
+        state.morph, modulated_freq, mix_control + jnp.zeros_like(env),
+        color_freq_1 + jnp.zeros_like(env), p("tone") + jnp.zeros_like(env),
+        elapsed_i, at_trig, sr,
+    )
 
-        mixed = click_out + tri_out + morph_out
+    mixed = click_out + tri_out + morph_out
 
-        last_trig = state.trig_sample
-        for _k in range(trig_offset.shape[1]):
-            last_trig = jnp.where(valid_k[:, _k], trig_global[:, _k], last_trig)
-        new_trig = last_trig
-        new_decay = jnp.where(has_trig, decay_new, state.decay_s)
-        new_tri_phase = jnp.mod(tri_phase[:, -1], 1.0)
+    last_trig = state.trig_sample
+    for _k in range(trig_offset.shape[1]):
+        last_trig = jnp.where(valid_k[:, _k], trig_global[:, _k], last_trig)
+    new_trig = last_trig
+    new_decay = jnp.where(has_trig, decay_new, state.decay_s)
+    new_tri_phase = jnp.mod(tri_phase[:, -1], 1.0)
 
     bp_state, mem_state, out = _back_half(
         state, at_trig, elapsed_i, mixed, env, main_done, fade_factor,
@@ -266,10 +237,7 @@ def render_block(
 
 def _back_half(state, at_trig, elapsed_i, mixed, env, main_done, fade_factor,
                modulated_freq, sr):
-    """Bandpass + membrane recurrences and output composition — shared by
-    the XLA path, the per-family fused path, and the kit mega-kernel path
-    (the resonators stay on the sample-sequential bank path; see
-    render_block)."""
+    """Bandpass + membrane recurrences and output composition."""
     p = lambda name: state.params[:, PARAM_INDEX[name]][:, None]  # [V,1]
 
     # --- pitch-tracking bandpass (q = 1 + (color/100)^2, gain 1.1) -------------
@@ -300,35 +268,3 @@ def _back_half(state, at_trig, elapsed_i, mixed, env, main_done, fade_factor,
     out = jnp.where(main_done & (ring <= 0.0001), 0.0, out)
     out = jnp.where(elapsed_i >= 0, out, 0.0)
     return bp_state, mem_state, out
-
-
-def finish_fused(state, trig_offset, block_start, front, mixed, env,
-                 main_done, fade_factor, modulated_freq, *, sample_rate,
-                 block_size):
-    """Finish a fused source-stage render (kit mega-kernel path): recompute
-    the trigger geometry, run the shared back half, assemble Tom2State."""
-    B = block_size
-    n_local = jnp.arange(B, dtype=jnp.int32)
-    off = jnp.asarray(trig_offset, jnp.int32)[:, None]            # [V, 1]
-    block_start = jnp.asarray(block_start, jnp.int32)
-    valid = off < B
-    at_trig = (n_local[None, :] == off) & valid
-    after = (n_local[None, :] >= off) & valid
-    trig_eff = jnp.where(after, block_start + off,
-                         state.trig_sample[:, None])
-    elapsed_i = (block_start + n_local)[None, :] - trig_eff
-
-    new_trig, new_decay, new_tri_phase, morph_state = front
-    bp_state, mem_state, out = _back_half(
-        state, at_trig, elapsed_i, mixed, env, main_done, fade_factor,
-        modulated_freq, sample_rate)
-    new_state = Tom2State(
-        params=state.params,
-        trig_sample=new_trig,
-        decay_s=new_decay,
-        tri_phase=new_tri_phase,
-        morph=morph_state,
-        bandpass=bp_state,
-        membrane=mem_state,
-    )
-    return new_state, out

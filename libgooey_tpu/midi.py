@@ -9,7 +9,7 @@ MIDI OUT separately in the FFI (drain queue, ffi.rs:2146-2168 — see
 ``Engine.drain_midi_out``); MIDI *input* is a host-side example feature,
 so this module is host-side too (nothing here runs on device).
 
-TPU-native redesign rather than translation:
+Batched redesign rather than translation:
 
 * :func:`parse_stream` — incremental byte parser (running status,
   velocity-0-as-note-off, channel filter) usable from any backend

@@ -153,22 +153,12 @@ def process_entry(effect_id: int, state, x, targets, *, sample_rate: float,
     if effect_id == EFFECT_PLATE_REVERB:
         return fx_plate.process_block(state, x, targets, sample_rate=sample_rate)
     if effect_id == EFFECT_WAVESHAPER:
-        import jax
-
         from libgooey_tpu.effects import freeze as frz
 
         # waveshaper.rs:55-57 early return: the whole block is bypassed
         # (drive/mix are per-block scalars here), so the oversampler
         # history holds exactly (effects/freeze.py)
         held = (targets[1] <= 1e-4) | (targets[0] <= 1.0)
-        if jax.default_backend() == "tpu" and fx_ws.IMPL != "xla":
-            from libgooey_tpu.ops import pallas_fx
-
-            zeros = jnp.zeros(2, jnp.float32)
-            packed = pallas_fx.pack_ovs4_dc(state, zeros, zeros)
-            y, nst = pallas_fx.waveshaper_block(x, targets[0], targets[1], packed)
-            new_state, _, _, _ = pallas_fx.unpack_ovs4_dc(nst, state)
-            return frz.hold_where(held, state, new_state), y
         wrap, box = fx_oversample.stateful(state, 4)
         y = fx_ws.process(x, targets[0], mix=targets[1], oversample=wrap)
         return frz.hold_where(held, state, box["state"]), y
@@ -257,52 +247,8 @@ class EffectChain:
         return tuple((e.effect_id, flag(e)) for e in self.entries)
 
 
-#: "auto" -> merge runs of >=2 fusable effects into ONE pallas_call on TPU
-#: (ops/pallas_chain.py); "off" keeps one call per effect.  The merged
-#: path reuses the per-effect kernel bodies unchanged and is pinned to
-#: the per-effect path by tests/test_pallas_chain.py.
-import os as _os
-
-FUSE_RUNS = _os.environ.get("LIBGOOEY_CHAIN_FUSE", "auto")
-
-
 def process_chain(states, x, targets_list, static_key, *, sample_rate: float):
-    """Fold a stereo block through the chain (trace-static order).
-
-    On TPU, maximal runs of mergeable effects execute as one merged
-    pallas_call (the chain is launch-bound at ~20 us per in-graph call);
-    non-mergeable entries (plate reverb, general-feedback waveshaper)
-    split the chain into runs.
-    """
-    import jax
-
-    if (FUSE_RUNS != "off" and len(static_key) >= 2
-            and jax.default_backend() == "tpu"
-            and getattr(x, "ndim", 0) == 2 and x.shape[0] == 2):
-        from libgooey_tpu.ops import pallas_chain as pc
-
-        new_states = []
-        i, n = 0, len(static_key)
-        while i < n:
-            eid, flag = static_key[i]
-            if pc.mergeable(eid, flag):
-                j = i
-                while j < n and pc.mergeable(*static_key[j]):
-                    j += 1
-                if j - i >= 2:
-                    sts, x = pc.process_run(
-                        static_key[i:j], list(states[i:j]), x,
-                        list(targets_list[i:j]), sample_rate=sample_rate)
-                    new_states.extend(sts)
-                    i = j
-                    continue
-            st, x = process_entry(
-                eid, states[i], x, targets_list[i],
-                sample_rate=sample_rate, pingpong=flag)
-            new_states.append(st)
-            i += 1
-        return new_states, x
-
+    """Fold a stereo block through the chain (trace-static order)."""
     new_states = []
     for (effect_id, pingpong), st, tg in zip(static_key, states, targets_list):
         st, x = process_entry(

@@ -11,7 +11,7 @@ Behavioral reference: src/mixer/graph.rs (533 LoC).
   master sum (rs:336-399); default 4-track layout is bit-identical to the
   flat mix (rs:131-143).
 
-TPU realization: the scatter is a ``[T, S] @ [S, 2, B]`` routing contraction;
+Device realization: the scatter is a ``[T, S] @ [S, 2, B]`` routing contraction;
 strips are smoothed trajectories; peaks are block maxima fetched lazily.
 """
 
@@ -50,7 +50,8 @@ def graph_block(bank, targets, source_frames, routing,
     keys."""
     bank = bank.with_targets(targets)
     bank, traj = smooth_block(bank, coeff, block_size)              # [T,3,B]
-    tracks_in = jnp.einsum("ts,scb->tcb", routing, source_frames)   # [T,2,B]
+    tracks_in = jnp.einsum("ts,scb->tcb", routing, source_frames,
+                           precision=jax.lax.Precision.HIGHEST)     # [T,2,B]
 
     gain_t = traj[:, 0, :]
     pan_t = traj[:, 1, :]

@@ -11,7 +11,7 @@ Behavioral reference: src/mixer/loop_channel.rs (929 LoC).
 * bar-quantized buffer swap: staged buffer lands at the grid boundary
   (rs:319-345); live loop-window resize with cursor folding (rs:487-500).
 
-TPU split: the entire cursor/window/swap state machine runs host-side in
+Host/device split: the entire cursor/window/swap state machine runs host-side in
 exact float64 (one linear sweep per block, vectorized in numpy, with an
 analytic split at a landing swap); the device receives per-sample read
 positions (int + frac) and does cubic gathers, gain smoothing and the

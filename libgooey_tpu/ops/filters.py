@@ -2,7 +2,8 @@
 
 Each filter follows the same pattern: compute per-sample coefficient
 trajectories from (smoothed, possibly modulated) parameters — vectorized —
-then collapse the state recursion with an associative scan (ops.scan).
+then run the state recursion through ops.scan (first order: associative
+scan; second order: sample-sequential, ``linrec2``).
 State is carried across blocks in small per-voice arrays.
 
 Behavioral references:
@@ -27,23 +28,6 @@ import numpy as np
 from libgooey_tpu.ops import scan as gscan
 
 PI = float(np.pi)
-
-#: "auto" -> voice-bank Pallas kernel for wide [V, B] TPT SVF banks on TPU;
-#: "xla" forces the associative-scan path; "pallas" forces the kernel (tests).
-IMPL = "auto"
-
-
-def _use_bank_kernel(x) -> bool:
-    import jax
-
-    if IMPL == "pallas":
-        return True
-    # Any 2-D bank on TPU: even a V=4 kit pads to one 128-lane slab, and a
-    # single kernel beats the ~10 log-depth scan kernels it replaces (the
-    # 4-voice full-kit block measured 3.13 -> 2.91 ms when forced; the old
-    # V >= 128 gate left small/product configs on the scan path).
-    return IMPL == "auto" and jax.default_backend() == "tpu" and x.ndim == 2
-
 
 def _shift1(x, x0):
     """Delay by one along the trailing axis with carried first value."""
@@ -90,16 +74,6 @@ def svf_tpt_block(state: SVFState, x, g, h, reset=None):
     ``reset`` zeroes the incoming state at masked samples (trigger resets).
     """
     g, h, x = jnp.broadcast_arrays(g, h, x)
-    if _use_bank_kernel(x):
-        # sample-sequential [B, G, 128] voice-bank kernel: the associative
-        # scan's 6 coefficient arrays cost ~9 log-depth HBM round trips
-        # (~0.66 ms of the 4,096-voice kick block); the kernel carries the
-        # integrators in vregs and matches the reference's per-sample order
-        from libgooey_tpu.ops import pallas_fx
-
-        v1, v2, ic1l, ic2l = pallas_fx.svf_bank(
-            x, g, h, reset, state.ic1, state.ic2)
-        return SVFState(ic1=ic1l, ic2=ic2l), v1, v2
     hg = h * g
     a11 = 2.0 * h - 1.0
     a12 = -2.0 * hg
@@ -333,8 +307,8 @@ def membrane_block(state: MembraneState, x, q_scale, gain_scale, sample_rate,
     Returns ``(new_state, out, ring_level_traj)``.
     """
     # all 5 bands as one batched biquad: the band axis folds into the batch
-    # dims, so the recurrence is ONE linrec2/bank-kernel call instead of a
-    # Python loop of five (a 5x graph-floor cut on the tom2 path)
+    # dims, so the recurrence is ONE linrec2 call instead of a Python loop
+    # of five
     gains = jnp.asarray(MEMBRANE_PARAMS[:, 0])          # [5]
     freqs = jnp.asarray(MEMBRANE_PARAMS[:, 1])
     qs = jnp.asarray(MEMBRANE_PARAMS[:, 2])
@@ -387,7 +361,7 @@ def chamberlin_block(state: ChamberlinState, x, cutoff_hz, resonance, sample_rat
     ``f = 2 sin(pi * min(fc/sr, 0.45))``, ``q = 1/max(resonance, 0.5)``; each
     audio sample runs the core update twice with the same input for
     stability.  Per sample the two iterations compose into one affine map on
-    (low, band), which scans in O(log B).
+    (low, band), which linrec2 runs sample by sample.
 
     Returns (state, low, band, high, notch) — the post-update taps, matching
     `process_all` / `process_mode` (filter_type 0=LP 1=BP 2=HP 3=notch).

@@ -9,7 +9,7 @@ MorphOsc — a 3-channel crossfade (``mix3``) of:
 combined noise = (white*0.2 + rand~)*0.4 where rand~ ramps linearly between
 random values at ``mtof(color_freq)`` rate.
 
-TPU mapping: the phase accumulators become per-block cumulative sums with
+Block mapping: the phase accumulators become per-block cumulative sums with
 carried state and trigger resets; the rand~ sample-and-hold becomes a pure
 function of the accumulated rand phase (segment index -> hashed target),
 which deviates from the reference only in *which* random value each segment
@@ -86,9 +86,7 @@ def morph_block(
         exact (total*2048 < 2^24 grid steps), ``lo*(n+1)`` and the
         residual cumsum of ``inc - inc0`` (zero for tom2's block-constant
         rate) carry one rounding each.  The reset base-latch scan has
-        coefficients in {0, 1}, so it is exact under any scan order —
-        the fused kernel (pallas_voice._tom2_kernel) mirrors this
-        expression op-for-op.
+        coefficients in {0, 1}, so it is exact under any scan order.
         """
         B = inc.shape[-1]
         n1 = jnp.arange(1, B + 1, dtype=jnp.float32)
@@ -97,7 +95,7 @@ def morph_block(
         hi = jnp.floor(inc0 * 2048.0) / 2048.0
         lo = inc0 - hi
         ramp = hi * n1 + lo * n1
-        resid = gscan.cumsum_bank(inc - inc0, axis=-1)
+        resid = jnp.cumsum(inc - inc0, axis=-1)
         p = ramp + resid
         p_prev = jnp.concatenate(
             [jnp.zeros_like(p[..., 0:1]), p[..., :-1]], axis=-1)

@@ -71,21 +71,6 @@ def pink_block(
     poles, gains = coefficients(sample_rate)
     w = rng.white(jnp.asarray(counters, jnp.int32).astype(jnp.uint32), seed)
 
-    from libgooey_tpu.ops import filters as _filters
-
-    if _filters._use_bank_kernel(w):
-        # sample-sequential [B, G, 128] voice-bank kernel: the three
-        # one-pole scans cost ~0.4 ms of the 4,096-voice kick block in
-        # log-depth HBM passes (ops/pallas_fx.pink_bank)
-        from libgooey_tpu.ops import pallas_fx
-
-        pink, fstate = pallas_fx.pink_bank(
-            w, reset, state.fstate,
-            poles=tuple(float(p) for p in poles),
-            gains=tuple(float(g) for g in gains),
-            direct=float(DIRECT_GAIN), outg=float(OUTPUT_GAIN))
-        return PinkState(fstate=fstate), pink
-
     outs = []
     new_states = []
     for i in range(3):

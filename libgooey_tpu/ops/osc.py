@@ -103,30 +103,16 @@ def triangle_additive(sample_index, freq, sample_rate, max_harmonics: int):
     at Nyquist (oscillator.rs:106-131).  All harmonics share the positive
     sine phase (no alternating sign), faithfully matching the reference.
 
-    TPU realization: ``sin(i*theta)`` via the Chebyshev-style recurrence
+    Realization: ``sin(i*theta)`` via the Chebyshev-style recurrence
     ``sin((i+2)t) = 2cos(2t) sin(it) - sin((i-2)t)`` — one FMA pass per odd
     harmonic over the whole ``[V, B]`` block, no per-harmonic transcendentals.
 
     ``max_harmonics`` is the static unroll bound; it must be >= nyquist /
     min-possible-frequency for exactness at the lowest pitches.
 
-    On TPU, 2-D [V, B] banks route through the gridded Pallas kernel
-    (pallas_voice.triangle_additive_bank): the XLA ``fori_loop`` round-
-    trips its [V, B] carries through HBM every harmonic, which dominates
-    large snare banks (~1.6 ms/block at 1,024 voices x 64 harmonics).
-    This XLA formulation remains the CPU/interpret reference.
+    The ``fori_loop`` carries three ``[V, B]`` arrays through device
+    memory on every harmonic.
     """
-    import jax as _jax
-
-    if (_jax.default_backend() == "tpu"
-            and getattr(sample_index, "ndim", 0) == 2
-            and getattr(freq, "ndim", 0) == 2
-            and sample_index.shape == freq.shape):
-        from libgooey_tpu.ops import pallas_voice as _pv
-
-        if _pv.IMPL != "xla":
-            return _pv.triangle_additive_bank(
-                sample_index, freq, sample_rate, max_harmonics)
     theta = sample_index * freq * (TWO_PI / sample_rate)
     nyquist = sample_rate / 2.0
     sin1 = jnp.sin(theta)

@@ -11,7 +11,7 @@ standard analytic elliptic design (Valenzuela & Constantinides; the same
 algorithm behind the hiir library), computed here and verified by the test
 suite to exceed 90 dB stop-band attenuation.
 
-TPU mapping: each allpass section is a first-order linear recurrence at the
+Block mapping: each allpass section is a first-order linear recurrence at the
 *low* rate — associative scans — so up/down-sampling a whole block is a
 handful of linrec1 passes; the nonlinearity runs vectorized at the high
 rate.  State (one value per section per path) is threaded explicitly.
@@ -91,10 +91,8 @@ class HalfbandState(NamedTuple):
     """Per-section states for one half-band (both phases + input delay).
 
     ``*y2``/``*x2`` hold each section's second-to-last output/input sample.
-    They are redundant for the XLA scans but seed the fused Pallas kernel
-    (ops/pallas_fx.py), which processes interleave-coupled stage-2 sections
-    in deinterleaved (even/odd) form: the even-subsequence scan needs the
-    previous block's last *even*-position values, i.e. index [-2] of the
+    The scans here do not read them; they are what a deinterleaved (even/
+    odd) stage-2 evaluation would need to resume: index [-2] of the
     interleaved stream.
     """
 
@@ -120,7 +118,7 @@ class HalfbandState(NamedTuple):
         )
 
 
-#: Chunk length for the Toeplitz-matmul allpass path (one MXU tile).
+#: Chunk length for the Toeplitz-matmul allpass path (one matmul tile).
 _NC = 128
 #: Minimum flattened batch (voice-lane) count at which the matmul path
 #: beats the associative scans.  Small batches (the stereo bus effects,
@@ -162,12 +160,12 @@ def _allpass_chain_paired_mx(sig, coef_pairs, y0s, x0s):
 
     Each section's coefficient is a *compile-time constant*, so the whole
     first-order recurrence over a chunk of ``_NC`` samples is one matmul
-    against a precomputed triangular Toeplitz matrix — MXU work instead of
+    against a precomputed triangular Toeplitz matrix — matmul work instead of
     a log-depth associative scan whose passes round-trip [V, B] arrays
-    through HBM (the scans were ~2/3 of the 4,096-voice drum banks' block
-    cost).  Chunk carries propagate through a static Python loop over the
-    (few) chunks.  HIGHEST precision: TPU DEFAULT rounds f32 matmul
-    operands to bf16, ~-39 dBFS on unity audio — far off the -80 dBFS bar.
+    through device memory.  Chunk carries propagate through a static Python
+    loop over the (few) chunks.  HIGHEST precision: a DEFAULT f32 matmul
+    may round its operands (bf16 or TF32, depending on the device), far off
+    the -80 dBFS bar.
     """
     N = sig.shape[-1]
     C = N // _NC
@@ -206,7 +204,7 @@ def _allpass_chain_paired_mx(sig, coef_pairs, y0s, x0s):
 
 #: Wide-bank chain formulation: "lifted" composes the WHOLE chain into one
 #: chunk-lifted state-space operator (one [nc, nc] matmul per chunk instead
-#: of one per section — S-fold fewer MXU passes and HBM round-trips);
+#: of one per section — S-fold fewer matmul passes and HBM round-trips);
 #: "toeplitz" keeps the per-section matmuls (round-4 numerics, kept for
 #: A/B and fallback).
 MX_CHAIN_IMPL = "lifted"
@@ -283,7 +281,7 @@ def _allpass_chain_lifted_mx(sig, coef_pairs, y0s, x0s):
 
     One [nc, nc] HIGHEST-precision matmul per chunk applies ALL S
     sections at once (vs one per section), plus tiny [Z]-wide state
-    einsums — S-fold fewer MXU passes AND only one [.., N] intermediate
+    einsums — S-fold fewer matmul passes AND only one [.., N] intermediate
     per chain instead of per section.  Constants are exact f64 lifts of
     the recurrence (:func:`_lifted_consts`); f32 rounding differs from
     the per-section path by reassociation only (same tolerance class as
@@ -328,7 +326,7 @@ def _allpass_chain_paired(sig, coef_pairs, y0s, x0s):
     of chaining the phases separately, with identical per-lane numerics.
 
     Wide voice banks (>= ``_MX_MIN_BATCH`` flattened lanes, block a
-    multiple of ``_NC``) route to the MXU path instead (lifted whole-chain
+    multiple of ``_NC``) route to the matmul path instead (lifted whole-chain
     by default; see ``MX_CHAIN_IMPL``).
     """
     batch = 1

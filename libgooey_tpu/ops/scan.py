@@ -7,16 +7,18 @@ poles, envelope followers with fixed coefficients) is a *linear* recurrence
     y[n] = a[n] * y[n-1] + b[n]          (first order)
     s[n] = A[n] @ s[n-1] + b[n]          (second order, 2-vector state)
 
-which is associative under composition, so a whole block of B samples is
-solved in O(log B) parallel steps with `jax.lax.associative_scan` over the
-trailing (sample) axis — fully parallel across the leading voice axes.
+which is associative under composition, so a first-order block of B
+samples is solved in O(log B) parallel steps with
+`jax.lax.associative_scan` over the trailing (sample) axis — fully
+parallel across the leading voice axes.  Second-order banks run sample by
+sample instead (see :func:`linrec2`).
 
 State is carried *between* blocks by the caller: pass the previous block's
 final value as ``y0`` / ``s0`` and keep the returned last sample.
 
 Nonlinear recurrences (tanh feedback, attack/release-switching envelope
 followers) are NOT expressible this way; see :func:`nonlinear_scan` for the
-sequential fallback used by those (once per bus, or Pallas-fused later).
+sample-sequential loop used by those.
 """
 
 from __future__ import annotations
@@ -24,92 +26,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-
-#: Opt-in: route large 2D-reshapeable linrec1 calls to the Pallas
-#: chunked-scan kernel (ops.pallas_scan).  Standalone the kernel beats the
-#: associative scan (one HBM round trip vs log-depth passes), but inside
-#: the full render graph a pallas_call is a fusion barrier — the a/b
-#: operands XLA would otherwise fuse into neighboring elementwise work
-#: must materialize to HBM, which measured ~45M → 24M aggregate RTF on
-#: the kick bench.  Off by default; kept for standalone/large-B callers.
-USE_PALLAS = False
-
-
-def _pallas_enabled() -> bool:
-    return USE_PALLAS
-
-
-#: linrec2 -> voice-bank kernel routing (pallas_fx.linrec2_bank).  Unlike
-#: linrec1 (see USE_PALLAS above), this is ON by default for 2-D [V, B]
-#: banks on TPU: every linrec2 caller on the TPU path is an instrument-bank
-#: recurrence (biquads, Chamberlin, membrane bands) whose cost is the
-#: O(log B) multi-kernel scan, not operand fusion — the 4,096-voice kick's
-#: hot recurrences were already diverted to dedicated kernels upstream.
-#:
-#: On CPU (the hermetic test backend) "auto" runs a sample-sequential
-#: ``lax.scan`` instead of the associative scan: the tree scan REASSOCIATES
-#: the 2x2 matrix products, and for high-Q resonators (membrane bands,
-#: pitch-tracking bandpasses, Chamberlin at low damping) that reassociation
-#: noise is amplified by the resonant ring-up — measured 2.6e-4..2.7e-3 vs
-#: the per-sample oracles on tom2's ring/void/brush presets, vs <3e-5
-#: sequential.  Sequential also matches the op order of the TPU bank kernel
-#: (one sample at a time), so CPU tests pin the same numerics class the
-#: device runs.  "xla" forces the associative scan everywhere (scan-math
-#: unit tests); "seq" forces the sequential path everywhere.
-LINREC2_IMPL = "auto"
-
-
-def _bank2_enabled(a, axis) -> bool:
-    if LINREC2_IMPL != "auto":
-        return False
-    if axis not in (-1, a.ndim - 1) or a.ndim < 2 or a.shape[-1] < 8:
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _seq2_enabled(a, axis) -> bool:
-    if LINREC2_IMPL == "seq":
-        return True
-    if LINREC2_IMPL != "auto":
-        return False
-    if axis not in (-1, a.ndim - 1):
-        return False
-    # TPU fallback shapes (1-D, B<8) keep the associative scan: a 512-step
-    # serialized loop on device would stall the pipeline for shapes the
-    # bank kernel rejects; on CPU sequential is both closer to the oracles
-    # and (for the small voice counts tests use) no slower.
-    return jax.default_backend() != "tpu"
-
-
-def _rows(shape) -> int:
-    n = 1
-    for d in shape[:-1]:
-        n *= d
-    return n
-
-
-#: First-order recurrences route to the bank kernel for banks up to
-#: 4,096 rows.  The chunked linrec1 kernel above (pallas_scan) measured a
-#: ~2x headline regression from operand-fusion loss, but the flat
-#: affine1_bank kernel is a different trade: one HBM round trip per call
-#: (~4 us at [1024, 512]) vs the associative scan's ~9 slice/pad stages
-#: (~8 us each at that shape, ~114 us/block total across the composed
-#: kit's surviving scans — device trace, round 5).  Composed with
-#: render_many's unroll=2 the rerouting measured 2290 -> 2110 us/block on
-#: the 4,096-voice kit; alone (unroll=1) it is parity within window noise,
-#: so the cap is sized to the headline bank.  "xla" disables the kernel.
-LINREC1_BANK_IMPL = "auto"
-_BANK1_MAX_V = 4096
-
-
-def _bank1_enabled(a, axis) -> bool:
-    if LINREC1_BANK_IMPL != "auto":
-        return False
-    if axis not in (-1, a.ndim - 1) or a.ndim < 2 or a.shape[-1] < 8:
-        return False
-    if _rows(a.shape) > _BANK1_MAX_V:
-        return False
-    return jax.default_backend() == "tpu"
+from libgooey_tpu.ops import recurrence
 
 
 def linrec1(a, b, y0, axis: int = -1):
@@ -120,31 +37,6 @@ def linrec1(a, b, y0, axis: int = -1):
     ``broadcast(a, b)``.
     """
     a, b = jnp.broadcast_arrays(jnp.asarray(a), jnp.asarray(b))
-
-    if axis in (-1, a.ndim - 1) and _pallas_enabled():
-        from libgooey_tpu.ops import pallas_scan
-
-        y0a = jnp.broadcast_to(jnp.asarray(y0), a.shape[:-1])
-        rows = 1
-        for d in a.shape[:-1]:
-            rows *= d
-        a2 = a.reshape(rows, a.shape[-1]) if a.ndim != 2 else a
-        y2 = y0a.reshape(rows) if y0a.ndim != 1 else y0a
-        if pallas_scan.supported(a2, y2):
-            b2 = b.reshape(rows, b.shape[-1]) if b.ndim != 2 else b
-            return pallas_scan.linrec1_pallas(a2, b2, y2).reshape(a.shape)
-
-    if _bank1_enabled(a, axis):
-        from libgooey_tpu.ops import pallas_fx
-
-        lead, B = a.shape[:-1], a.shape[-1]
-        R = _rows(a.shape)
-        y0f = jnp.broadcast_to(jnp.asarray(y0, jnp.float32), lead).reshape(R)
-        y, _ = pallas_fx.affine1_bank(
-            jnp.full((R, B), -3.0e38, jnp.float32),
-            a.reshape(R, B), b.reshape(R, B), y0f,
-        )
-        return y.reshape(a.shape)
 
     def combine(left, right):
         a_l, b_l = left
@@ -184,7 +76,17 @@ def onepole_const(coeff, x_const, y0, n: int, axis: int = -1):
     return y
 
 
-def linrec2(a11, a12, a21, a22, b1, b2, s0, axis: int = -1):
+def linrec2_step(carry, coeffs):
+    """One sample of ``s = A s_prev + b``: the op order the oracles pin."""
+    s1p, s2p = carry
+    c11, c12, c21, c22, d1, d2 = coeffs
+    s1 = (c11 * s1p + c12 * s2p) + d1
+    s2 = (c21 * s1p + c22 * s2p) + d2
+    return (s1, s2), (s1, s2)
+
+
+def linrec2(a11, a12, a21, a22, b1, b2, s0, axis: int = -1, *,
+            impl: str | None = None):
     """Solve a 2-state linear recurrence ``s[n] = A[n] s[n-1] + b[n]``.
 
     All coefficient arrays broadcast together and include the sample axis
@@ -192,50 +94,29 @@ def linrec2(a11, a12, a21, a22, b1, b2, s0, axis: int = -1):
     ``(s1_0, s2_0)`` of slice-shaped arrays.  Returns ``(s1, s2)`` full
     trajectories.
 
-    This is how Chamberlin/TPT SVFs and biquads run on TPU: per-sample
+    This is how Chamberlin/TPT SVFs and biquads run: per-sample
     coefficient trajectories (from smoothed parameters) are computed
-    vectorized, then the state recursion collapses via associative scan
-    — 8 multiplies per combine, O(log B) depth.
+    vectorized, then the state recursion runs sample by sample
+    (:mod:`ops.recurrence`).  The associative scan (``impl="assoc"``)
+    reassociates the 2x2 products, and for high-Q resonators (membrane
+    bands, pitch-tracking bandpasses, Chamberlin at low damping) the
+    resonant ring-up amplifies that noise: measured 2.6e-4..2.7e-3 against
+    the per-sample oracles on tom2's ring/void/brush presets, against
+    <3e-5 sequential.  ``impl`` is ``"assoc"`` or a
+    :func:`recurrence.sequential_scan` choice.
     """
     arrs = jnp.broadcast_arrays(
         *(jnp.asarray(v) for v in (a11, a12, a21, a22, b1, b2))
     )
     a11, a12, a21, a22, b1, b2 = arrs
 
-    if _bank2_enabled(a11, axis):
-        # sample-sequential voice-bank kernel: one pass over the six
-        # coefficient arrays instead of O(log B) scan passes (~10 kernels)
-        # — the graph-floor fix for the biquad/Chamberlin-heavy families
-        # (snare, hihat2, tom2, membrane) at product voice counts.
-        # Leading dims (e.g. membrane's [V, 5] bands) flatten into rows.
-        from libgooey_tpu.ops import pallas_fx
-
-        lead, B = a11.shape[:-1], a11.shape[-1]
-        R = _rows(a11.shape)
-        flat = lambda v: v.reshape(R, B)
-        s10 = jnp.broadcast_to(jnp.asarray(s0[0], jnp.float32), lead).reshape(R)
-        s20 = jnp.broadcast_to(jnp.asarray(s0[1], jnp.float32), lead).reshape(R)
-        s1, s2, _, _ = pallas_fx.linrec2_bank(
-            flat(a11), flat(a12), flat(a21), flat(a22), flat(b1), flat(b2),
-            s10, s20,
-        )
-        return s1.reshape(a11.shape), s2.reshape(a11.shape)
-
-    if _seq2_enabled(a11, axis):
+    if impl != "assoc":
         lead = a11.shape[:-1]
         s10 = jnp.broadcast_to(jnp.asarray(s0[0], a11.dtype), lead)
         s20 = jnp.broadcast_to(jnp.asarray(s0[1], a11.dtype), lead)
-        xs = tuple(jnp.moveaxis(v, -1, 0) for v in arrs)
-
-        def step(carry, x):
-            s1p, s2p = carry
-            c11, c12, c21, c22, d1, d2 = x
-            s1 = (c11 * s1p + c12 * s2p) + d1
-            s2 = (c21 * s1p + c22 * s2p) + d2
-            return (s1, s2), (s1, s2)
-
-        _, (s1, s2) = jax.lax.scan(step, (s10, s20), xs)
-        return jnp.moveaxis(s1, 0, -1), jnp.moveaxis(s2, 0, -1)
+        _, (s1, s2) = nonlinear_scan(
+            linrec2_step, (s10, s20), tuple(arrs), axis=axis, impl=impl)
+        return s1, s2
 
     def combine(l, r):
         la11, la12, la21, la22, lb1, lb2 = l
@@ -258,28 +139,6 @@ def linrec2(a11, a12, a21, a22, b1, b2, s0, axis: int = -1):
     s1 = c11 * s1_0 + c12 * s2_0 + c1
     s2 = c21 * s1_0 + c22 * s2_0 + c2
     return s1, s2
-
-
-def cumsum_bank(x, axis: int = -1):
-    """``jnp.cumsum`` that routes small banks through the sequential bank
-    kernel on TPU (cumsum is ``linrec1`` with a = 1; XLA's tree cumsum is
-    another ~log B kernels of graph floor).  Sequential summation rounds
-    no worse than the tree; the CPU path stays ``jnp.cumsum`` bit-exactly.
-    """
-    x = jnp.asarray(x)
-    if _bank1_enabled(x, axis):
-        from libgooey_tpu.ops import pallas_fx
-
-        lead, B = x.shape[:-1], x.shape[-1]
-        R = _rows(x.shape)
-        y, _ = pallas_fx.affine1_bank(
-            jnp.full((R, B), -3.0e38, jnp.float32),
-            jnp.ones((R, B), jnp.float32),
-            x.reshape(R, B).astype(jnp.float32),
-            jnp.zeros((R,), jnp.float32),
-        )
-        return y.reshape(x.shape)
-    return jnp.cumsum(x, axis=axis)
 
 
 def cumsum_reset(x, reset, reset_base, y0, axis: int = -1):
@@ -326,7 +185,7 @@ def phase_cumsum_reset(inc, reset, carry, axis: int = -1):
     ramp_hi = hi * n1                     # exact: <= 2^24 grid steps
     ramp_hi = ramp_hi - jnp.floor(ramp_hi)  # exact mod-1 (2^-11 grid)
     ramp = ramp_hi + lo * n1
-    resid = cumsum_bank(inc - inc0, axis=-1)
+    resid = jnp.cumsum(inc - inc0, axis=-1)
     p = jnp.mod(ramp + resid, 1.0)        # mod-1 prefix sums, P~[n]
     # base latch: the mod-1 prefix just BEFORE the governing reset
     # (base[n] = reset[n] ? P~[n-1] : base[n-1]; init -carry so the no-reset
@@ -350,16 +209,6 @@ def maxlin(a, b, c, y0, axis: int = -1):
     run in O(log B) like any linear recurrence.
     """
     a, b, c = jnp.broadcast_arrays(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c))
-
-    if _bank1_enabled(a, axis):
-        from libgooey_tpu.ops import pallas_fx
-
-        lead, B = a.shape[:-1], a.shape[-1]
-        R = _rows(a.shape)
-        y0f = jnp.broadcast_to(jnp.asarray(y0, jnp.float32), lead).reshape(R)
-        y, _ = pallas_fx.affine1_bank(
-            a.reshape(R, B), b.reshape(R, B), c.reshape(R, B), y0f)
-        return y.reshape(a.shape)
 
     def combine(l, r):
         a_l, b_l, c_l = l
@@ -386,19 +235,22 @@ def asym_smooth(target, down_coeff, y0, reset=None, axis: int = -1):
     return maxlin(a, b, c, y0, axis=axis)
 
 
-def nonlinear_scan(step_fn, state, xs, axis: int = -1):
-    """Sequential per-sample fallback for genuinely nonlinear recurrences.
+def nonlinear_scan(step_fn, state, xs, axis: int = -1, *,
+                   impl: str | None = None):
+    """Sequential per-sample loop for recurrences a tree scan cannot take.
 
     ``step_fn(state, x_slice) -> (state, y_slice)`` where slices are the
     arrays without the sample axis (i.e. ``[V]``-shaped).  ``xs`` is a pytree
-    of arrays with the sample axis at ``axis``.  Runs as ``lax.scan`` over the
-    block: B sequential steps, each fully parallel over voices.
+    of arrays with the sample axis at ``axis``.  Runs B sequential steps,
+    each parallel over the lanes, through
+    :func:`recurrence.sequential_scan` (``impl`` as there).  State leaves
+    have the lane shape of ``xs``.
 
     Reference counterparts: the feedback waveshaper's tanh loop
     (src/effects/feedback_waveshaper.rs:118-170), compressor envelope
     follower with attack/release switching (src/effects/compressor.rs:96-99).
     """
     xs_t = jax.tree_util.tree_map(lambda v: jnp.moveaxis(v, axis, 0), xs)
-    state, ys_t = jax.lax.scan(step_fn, state, xs_t)
+    state, ys_t = recurrence.sequential_scan(step_fn, state, xs_t, impl=impl)
     ys = jax.tree_util.tree_map(lambda v: jnp.moveaxis(v, 0, axis), ys_t)
     return state, ys

@@ -1,14 +1,14 @@
-"""Multi-chip scaling: shard the voice axis over an ICI mesh.
+"""Multi-device scaling: shard the voice axis over a device mesh.
 
 The reference is a single-audio-thread engine; its only cross-voice
-communication is the final additive mix (SURVEY.md §2.10).  The TPU-native
-scaling story is therefore pure data parallelism over voices:
+communication is the final additive mix (SURVEY.md §2.10).  The scaling
+story is therefore pure data parallelism over voices:
 
 * every per-voice array in the engine state is sharded on a 1-D ``voices``
   mesh axis;
 * the per-block render is embarrassingly parallel until the mix;
 * the stereo mix-down ``[2, V] @ [V, B]`` contracts over the sharded axis —
-  XLA turns it into a local partial mix + ``psum`` over ICI (one [2, B]
+  XLA turns it into a local partial mix + ``psum`` (one [2, B]
   vector per block: negligible traffic);
 * bus effects (global FX chain) run replicated after the reduction.
 
@@ -18,11 +18,9 @@ event arrays are ``[V]``-sharded like the state.
 Two sharded execution paths:
 
 * **GSPMD** (plain jit over sharded arrays): flexible — any feature incl.
-  poly — but must pass ``fused_banks=False``: a pallas_call does not
-  partition under GSPMD, so sharded state would be gathered to one chip.
+  poly.
 * **shard_map** (:func:`render_all_sharded`): runs ``engine._render_all``
-  per shard on LOCAL voice slices, so the fused Pallas instrument-bank
-  kernels stay on the fast path; the mix is an explicit ``psum`` of one
+  per shard on LOCAL voice slices; the mix is an explicit ``psum`` of one
   ``[2, B]`` frame per block.  This path carries the FULL product scope:
   LFO routes and the compressor sidechain resolve their global voice ids
   per-shard (``axis_index`` row masks; the sidechain tap is one extra
@@ -130,14 +128,13 @@ def _state_specs(state, kinds, events, mesh):
 
 
 def render_all_sharded(state, events, *, mesh: Mesh, **static):
-    """One engine block over the mesh, KEEPING the fused Pallas bank path.
+    """One engine block over the mesh as one ``shard_map`` program.
 
     Wraps ``engine._render_all`` in ``jax.shard_map`` over the voice axis:
-    each shard renders its local voice slice (fused pallas_calls included —
-    they are per-shard programs, not GSPMD-partitioned ops), then the
+    each shard renders its local voice slice, then the
     ``[2, B]`` mix and ``[B]`` mono sum all-reduce with ``psum`` and the
     replicated bus chain + limiter run identically on every shard.  This is
-    the ONE path that carries the full product: fused banks, LFO routes
+    the ONE path that carries the full product: the banks, LFO routes
     (global slot ids resolved per-shard via ``axis_index``), the
     sidechained compressor (owning shard masks its tap, one [B] psum), the
     user-ordered bus chain, and — with ``collect_sources=True`` — the
@@ -148,20 +145,19 @@ def render_all_sharded(state, events, *, mesh: Mesh, **static):
     Returns ``(new_state, stereo[2, B], mono[B])`` — or, with
     ``collect_sources``, ``(new_state, sources[S, 2, B], all_voices[V, B],
     voice_peaks[V])`` with the voice-axis outputs restored to family-concat
-    order.  Static kwargs are ``engine._render_all``'s; ``fused_banks``
-    defaults to True here.  ``poly`` is not supported under shard_map (its
+    order.  Static kwargs are ``engine._render_all``'s.  ``poly`` is not
+    supported under shard_map (its
     slot-level param bank does not share the lane-level voice axis) — use
     the GSPMD path for poly-bearing configs.
     """
     from libgooey_tpu.engine import engine as eng
 
     static = dict(static)
-    static.setdefault("fused_banks", True)
     static["psum_axis"] = VOICE_AXIS
     kinds = static["kinds"]
     if "poly" in kinds:
         raise ValueError("poly is not supported under shard_map; "
-                         "use the GSPMD (fused_banks=False) path")
+                         "use the GSPMD path")
     collect = bool(static.get("collect_sources"))
 
     # The flat mixer banks (pan/gain) index voices in family-concat order

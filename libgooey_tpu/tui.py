@@ -4,7 +4,7 @@ Behavioral reference: src/visualization/waveform_display.rs (the realtime
 GLFW scope window) and the crossterm UIs of the reference examples — the
 interactive surface a musician watches while playing.
 
-TPU-native redesign: the engine renders blocks on the device; this module
+Block redesign: the engine renders blocks on the device; this module
 is a pure-host ANSI renderer fed from the :class:`AudioBuffer` capture
 ring.  A frame is just a string, so it is headless-testable and works over
 any terminal; ``run`` drives an :class:`EngineOutput`-style adapter at a

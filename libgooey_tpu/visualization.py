@@ -4,7 +4,7 @@ Behavioral reference: src/visualization.rs (AudioBuffer ring),
 src/visualization/spectrogram.rs (Hann-windowed FFT → dB magnitude
 history), src/visualization/waveform_display.rs (the GLFW/OpenGL scope).
 
-TPU-native redesign: the FFT runs as a *batched* ``jnp.fft.rfft`` over
+Batched redesign: the FFT runs as a *batched* ``jnp.fft.rfft`` over
 ``[frames, fft_size]`` windows in one device call (``analyze_many``)
 instead of one rustfft plan per chunk; the display renders offscreen to
 an RGB array (no GL context exists headless — hosts blit the array).
@@ -29,7 +29,7 @@ class AudioBuffer:
         self._lock = threading.Lock()
 
     def push(self, sample):
-        """Append a sample — or a whole block (the TPU engine produces
+        """Append a sample — or a whole block (the engine produces
         blocks, so per-sample pushes would be pure overhead)."""
         arr = np.atleast_1d(np.asarray(sample, np.float32))
         with self._lock:

@@ -1,4 +1,4 @@
-// gooey_shim.cpp — native C ABI core over the TPU engine via embedded CPython.
+// gooey_shim.cpp — native C ABI core over the JAX engine via embedded CPython.
 //
 // Behavioral reference: src/ffi.rs — the `gooey_engine_*` functions the iOS
 // host links against, including the panic fence that latches any internal

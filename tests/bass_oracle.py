@@ -48,7 +48,7 @@ class ExactPhase:
     ±2.5-sample polyBLEP exclusion windows: inside a correction window
     the slope ~2/inc amplified any phase difference (f64 serial vs f32
     tree) into ~1e-3 spikes; with identical phase trajectories the bank
-    matches the oracle pointwise everywhere (VERDICT r3 #4)."""
+    matches the oracle pointwise everywhere."""
 
     def __init__(self, block_size):
         self.B = int(block_size)

@@ -4,7 +4,7 @@ Sequential float32 mirror of src/instruments/hihat.rs:498-672 semantics as
 realized by libgooey_tpu.instruments.hihat.render_block (dual noise sources
 sharing one hash stream, latched envelope shapes, envelope-swept one-pole
 output low-pass).  The blocked bank must agree with this to <=1e-4
-(the -80 dBFS bar every other family is pinned to, VERDICT r3 #6).
+(the -80 dBFS bar every other family is pinned to).
 """
 
 from __future__ import annotations

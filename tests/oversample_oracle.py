@@ -1,6 +1,6 @@
 """Per-sample scalar oracle of ops/oversample.py (hiir-style polyphase).
 
-Mirrors the TPU implementation exactly — same coefficients (STAGE1/STAGE2),
+Mirrors the device implementation exactly — same coefficients (STAGE1/STAGE2),
 same phase split, same allpass recurrence y = a*x + x_prev - a*y_prev,
 same odd-phase one-sample delay in the decimator — so oracles that chain
 nonlinearities through 4x oversampling match render_block bit-for-float.

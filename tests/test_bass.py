@@ -5,7 +5,7 @@ The oracle replays the bank's exact split-increment mod-1 phase
 samples land on the same side as the bank's and the old ±2.5-sample
 polyBLEP exclusion windows are gone: every sample must match to <2e-4
 (≈ −80 dBFS at full scale), including inside correction windows
-(VERDICT r3 #4).
+.
 """
 
 import dataclasses

@@ -147,6 +147,19 @@ def test_smoother_settles_within_1e4():
     )
 
 
+def test_smooth_advance_matches_smooth_block():
+    rs = np.random.RandomState(7)
+    cur = rs.randn(64).astype(np.float32)
+    tgt = rs.randn(64).astype(np.float32)
+    tgt[:8] = cur[:8] + 4e-5  # settle-snap lanes
+    bank = smoother.SmootherBank(np.asarray(cur), np.asarray(tgt))
+    coeff = 0.0015059
+    ref, _ = smoother.smooth_block(bank, coeff, 512)
+    got = smoother.smooth_advance(bank, coeff, 512)
+    np.testing.assert_array_equal(np.asarray(got.current), np.asarray(ref.current))
+    np.testing.assert_array_equal(np.asarray(got.target), np.asarray(ref.target))
+
+
 def test_white_noise_deterministic_and_bounded():
     n = np.arange(10_000)
     w = np.asarray(rng.white(n.astype(np.uint32)))

@@ -1,6 +1,7 @@
 """Compressor, saturation, tilt, lowpass effect oracles and behavior."""
 
 import numpy as np
+import pytest
 
 from libgooey_tpu.effects import compressor, lowpass, saturation, tilt
 from oversample_oracle import OracleOversampler
@@ -200,3 +201,102 @@ def test_saturation_wired_oversampling_reduces_aliasing():
     assert reduction_db > 20.0, reduction_db
     fund_change_db = abs(20 * np.log10(fund_over / fund_base))
     assert fund_change_db < 1.0, fund_change_db
+
+
+def _bus_entry(effect_id, state, x, targets, flag=False):
+    from libgooey_tpu.mixer import chain
+
+    outs = []
+    for i in range(0, x.shape[-1], B):
+        state, y = chain.process_entry(
+            effect_id, state, x[:, i:i + B], np.asarray(targets, np.float32),
+            sample_rate=SR, pingpong=flag)
+        outs.append(np.asarray(y))
+    return np.concatenate(outs, axis=-1)
+
+
+def test_bus_waveshaper_4x_oracle():
+    """The bus waveshaper entry through the 4x oversampler vs a per-sample
+    transcription (waveshaper.rs:59-68 curve, oversampler.rs chain)."""
+    from libgooey_tpu.mixer import chain
+    from libgooey_tpu.ops.oversample import OversamplerState
+
+    n = 4 * B
+    x0 = (np.sin(2 * np.pi * 441 * np.arange(n) / SR) * 0.8).astype(np.float32)
+    drive, mix = 3.0, 0.7
+    got = _bus_entry(chain.EFFECT_WAVESHAPER, OversamplerState.init((2,)),
+                     np.stack([x0, x0]), [drive, mix])[0]
+    comp = np.tanh(0.5) / np.tanh(0.5 * np.float32(drive))
+    ovs = OracleOversampler(4)
+    want = np.zeros(n, np.float32)
+    for i, xn in enumerate(x0):
+        wet = ovs.process(xn, lambda v: np.tanh(v * np.float32(drive)) * comp)
+        want[i] = xn * (1.0 - mix) + wet * mix
+    assert np.max(np.abs(got - want)) < 2e-5
+
+
+def test_bus_feedback_waveshaper_4x_oracle():
+    """The bus feedback waveshaper's zero-feedback path (4x tanh, envelope
+    follower, makeup gain, DC blocker) vs a per-sample transcription of
+    feedback_waveshaper.rs."""
+    from libgooey_tpu.effects import feedback_waveshaper as fbws
+    from libgooey_tpu.mixer import chain
+
+    n = 4 * B
+    t = np.arange(n) / SR
+    x0 = (np.sin(2 * np.pi * 330 * t) * np.linspace(0.9, 0.1, n)
+          ).astype(np.float32)
+    drive, mix = 4.0, 0.6
+    got = _bus_entry(chain.EFFECT_FEEDBACK_WAVESHAPER,
+                     fbws.FBShaperState.init((2,)), np.stack([x0, x0]),
+                     [drive, 0.0, 2000.0, mix], flag=True)[0]
+    att, rel = fbws.env_coeffs(SR)
+    ovs = OracleOversampler(4)
+    env = dcx = dcy = 0.0
+    want = np.zeros(n, np.float32)
+    for i, xn in enumerate(x0):
+        shaped = ovs.process(np.float32(drive) * xn, np.tanh)
+        r = abs(float(xn))
+        c = att if r > env else rel
+        env = env + (1.0 - c) * (r - env)
+        ref = max(env, fbws.ENV_FLOOR)
+        comp = min(np.tanh(ref) / max(abs(np.tanh(ref * drive)), 1e-6),
+                   fbws.MAX_COMP_GAIN)
+        y = shaped * comp - dcx + fbws.DC_COEFF * dcy
+        dcx, dcy = shaped * comp, y
+        want[i] = xn * (1.0 - mix) + y * mix
+    assert np.max(np.abs(got - want)) < 2e-5
+
+
+@pytest.mark.parametrize("knob", [0.2, 0.8], ids=["lp_region", "hp_region"])
+def test_bus_tilt_oracle(knob):
+    """The bus tilt filter at a settled knob vs a per-sample TPT SVF
+    (tilt_filter.rs region maps, state_variable_tpt.rs:42-68)."""
+    rs = np.random.RandomState(4)
+    n = 4 * B
+    x0 = rs.uniform(-0.8, 0.8, n).astype(np.float32)
+    res = 0.6
+    got = run_fx(tilt, dict(cutoff=knob, resonance=res), np.stack([x0, x0]),
+                 [knob, res])[0]
+    f32 = np.float32
+    if knob < 0.5:
+        mix = f32(1.0 - knob * 2.0)
+        freq = tilt.LP_FREQ[0] * np.exp(np.log(tilt.LP_FREQ[1] / tilt.LP_FREQ[0])
+                                        * (knob * 2.0))
+    else:
+        mix = f32((knob - 0.5) * 2.0)
+        freq = tilt.HP_FREQ[0] * np.exp(np.log(tilt.HP_FREQ[1] / tilt.HP_FREQ[0])
+                                        * ((knob - 0.5) * 2.0))
+    q = 0.5 + res * 8.0
+    g = f32(np.tan(np.pi * np.clip(freq, 20.0, SR * 0.45) / SR))
+    r = f32(1.0 / max(q, 0.5))
+    h = f32(1.0 / (1.0 + r * g + g * g))
+    ic1 = ic2 = f32(0.0)
+    want = np.zeros(n, np.float32)
+    for i, xn in enumerate(x0):
+        v1 = f32((g * (xn - ic2) + ic1) * h)
+        v2 = f32(ic2 + g * v1)
+        ic1, ic2 = f32(2 * v1 - ic1), f32(2 * v2 - ic2)
+        wet = v2 if knob < 0.5 else f32(xn - (r * v1 + v2))
+        want[i] = xn * (1.0 - mix) + wet * mix
+    assert np.max(np.abs(got - want)) < 1e-4

@@ -133,35 +133,3 @@ def test_granulator_device_path_matches_scalar_oracle():
     err = np.abs(got - want).max()
     assert err < 1e-4, err
     assert np.abs(got).max() > 1e-3
-
-
-
-def test_pallas_grain_read_matches_gather():
-    """The contiguous-window Pallas read path (interpret mode on CPU) is
-    f32-equivalent to the XLA gather path at the granulator level."""
-    rng = np.random.RandomState(11)
-    buf = (rng.standard_normal(4096) * 0.4).astype(np.float32)
-    state = gran.init_state(buf, SR, gran.GranulatorConfig(drive=0.4))
-    grains = [
-        dict(slot=0, offset=10, duration=800.0, src_pos=50.0, step=1.3,
-             shape=2.0, vel=0.9),
-        dict(slot=1, offset=200, duration=600.0, src_pos=3900.0, step=2.0,
-             shape=1.0, vel=0.8),   # runs off the buffer end (edge hold)
-        dict(slot=2, offset=0, duration=900.0, src_pos=300.0, step=-0.7,
-             shape=4.0, vel=0.6),   # reverse, runs off the start
-    ]
-    coeff = float(np.asarray(smoothing_coeff(SR)))
-    outs = {}
-    for mode in ("gather", "pallas"):
-        st = state
-        acc = []
-        for i, ev in enumerate([make_events(grains), empty_events()]):
-            st, y = gran.render_block(st, ev, np.int32(i * B), sample_rate=SR,
-                                      block_size=B, smooth_coeff=coeff,
-                                      grain_read=mode)
-            acc.append(np.asarray(y))
-        outs[mode] = np.concatenate(acc)
-    # basis-form vs Horner-form f32 rounding (see ops/pallas_grain.py)
-    err = np.abs(outs["gather"] - outs["pallas"]).max()
-    assert err < 1e-4, err
-    assert np.abs(outs["gather"]).max() > 1e-3

@@ -150,39 +150,3 @@ def test_sampler_sequencer_selects_slot():
     # 480 BPM → step = 5512.5/4 ≈ 1378 samples; step 0 positive, step 1 negative
     assert out[40] > 0.1
     assert out[1378 + 40] < -0.1
-
-
-def test_sampler_pallas_read_matches_gather():
-    import jax.numpy as jnp
-    samp = sm
-    """The contiguous-window linear-interp kernel (interpret mode on CPU)
-    bit-matches the gather path (same (age0+n)*inc f32 order)."""
-    rng = np.random.RandomState(3)
-    st = samp.init_state(1 << 14)
-    arena = rng.standard_normal((1 << 14, 2)).astype(np.float32) * 0.4
-    st = st._replace(arena=jnp.asarray(arena))
-    K = samp.MAX_STARTS_PER_BLOCK
-    ev = samp.StartEvents(
-        voice=jnp.asarray(np.arange(K, dtype=np.int32)),
-        offset=jnp.asarray(rng.randint(0, 512, K).astype(np.int32)),
-        base=jnp.asarray((rng.randint(0, 12, K) * 1000).astype(np.int32)),
-        frames=jnp.asarray(rng.uniform(400, 3000, K).astype(np.float32)),
-        increment=jnp.asarray(rng.uniform(0.4, 3.0, K).astype(np.float32)),
-        velocity=jnp.asarray(rng.uniform(0.3, 1.0, K).astype(np.float32)),
-    )
-    outs = {}
-    for mode in ("gather", "pallas"):
-        s2 = st
-        acc = []
-        for i, e in enumerate([ev, samp.StartEvents.empty()]):
-            s2, y = samp.render_block(s2, e, np.int32(i * 512),
-                                      sample_rate=44100.0, block_size=512,
-                                      voice_read=mode)
-            acc.append(np.asarray(y))
-        outs[mode] = np.concatenate(acc, axis=-1)
-    err = np.abs(outs["gather"] - outs["pallas"]).max()
-    # hi/lo split residual bound (pallas_grain._split_hi_lo: exact one-hot
-    # tap selection, ~2^-18 relative split residual); well under the
-    # -80 dBFS (1e-4) fidelity bar
-    assert err < 4e-5, err
-    assert np.abs(outs["gather"]).max() > 0.1

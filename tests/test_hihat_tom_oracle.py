@@ -1,6 +1,6 @@
 """HiHat v1 / Tom v1 banks vs dedicated per-sample oracles (<=1e-4).
 
-Completes the oracle coverage matrix (VERDICT r3 #6): every instrument
+Completes the oracle coverage matrix: every instrument
 family is pinned by a standalone per-sample oracle file.  These extend the
 inline transcriptions in test_drums.py with open-hat sustain paths,
 mid-stream retriggers, and live parameter smoothing.  Reference behavior:

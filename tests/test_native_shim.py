@@ -2,7 +2,7 @@
 
 The shim (native/gooey_shim.cpp) embeds CPython and forwards the
 `gooey_engine_*` C surface (include/gooey_tpu.h) to libgooey_tpu.capi —
-the TPU-native equivalent of the reference's cdylib FFI (src/ffi.rs).
+the batched-engine equivalent of the reference's cdylib FFI (src/ffi.rs).
 """
 
 import os
@@ -28,9 +28,9 @@ def test_build_and_run_c_smoke():
         capture_output=True, text=True,
     )
     env = dict(os.environ)
-    env["LIBGOOEY_TPU_PLATFORM"] = "cpu"
+    env["LIBGOOEY_PLATFORM"] = "cpu"
     # CPU run — must use the machine-keyed CPU cache, never .jax_cache
-    # (the TPU/driver cache), so foreign-host AOT entries are never loaded
+    # (the accelerator cache), so foreign-host AOT entries are never loaded
     # and CPU entries never leak into the driver cache.
     from cache_dirs import cpu_cache_dir, pin_cpu_isa
 

@@ -127,7 +127,7 @@ def test_4x_error_vs_16x_reference():
 
 
 def test_bank_toeplitz_path_matches_scan_path():
-    """Wide voice banks route the allpass chains to the MXU Toeplitz-matmul
+    """Wide voice banks route the allpass chains to the Toeplitz-matmul
     formulation (_allpass_chain_paired_mx); narrow batches keep the
     associative scans.  Same math, different association — the two must
     agree at float-noise level across state-threaded blocks."""

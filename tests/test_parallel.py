@@ -91,7 +91,6 @@ def test_sharded_full_kit_bus_matches_single_device():
                                  ("max_harmonics", 16))),
                        ("snare", (("max_harmonics", 16),))),
         fx_order=("saturation", "lowpass"),
-        fused_banks=False,   # pallas banks do not partition under GSPMD
     )
 
     def make_events(i):
@@ -137,12 +136,9 @@ def test_sharded_full_kit_bus_matches_single_device():
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 @pytest.mark.slow
 def test_shard_map_keeps_fused_banks():
-    """The shard_map path (parallel.mesh.render_all_sharded) runs the FUSED
-    Pallas bank kernels per shard (interpret mode on the CPU mesh) and must
-    match the unsharded fused render to reduction-order tolerance
-    (VERDICT r3 #2: multi-chip no longer abandons the fast path)."""
-    from libgooey_tpu.ops import pallas_voice as pv
-
+    """The shard_map path (parallel.mesh.render_all_sharded) runs the
+    instrument banks per shard and must match the unsharded render to
+    reduction-order tolerance."""
     per_family = {"kick": 16, "snare": 16, "hihat2": 16, "bass": 16}
     V = sum(per_family.values())
     state = {}
@@ -168,21 +164,15 @@ def test_shard_map_keeps_fused_banks():
                        ("snare", (("max_harmonics", 16),))),
     )
 
-    old_impl = pv.IMPL
-    pv.IMPL = "pallas"   # force fused kernels (interpret) on the CPU mesh
-    try:
-        ref_state, ref_out, ref_mono = eng._render_all_jit(
-            state, events, fused_banks=True, **static)
-        ref_out = np.asarray(ref_out)
+    ref_state, ref_out, ref_mono = eng._render_all_jit(state, events, **static)
+    ref_out = np.asarray(ref_out)
 
-        mesh = pmesh.make_mesh(8)
-        st_sharded = pmesh.shard_voice_tree(state, mesh)
-        ev_sharded = pmesh.shard_voice_tree(events, mesh)
-        new_state, out, mono = pmesh.render_all_sharded(
-            st_sharded, ev_sharded, mesh=mesh, **static)
-        out = np.asarray(out)
-    finally:
-        pv.IMPL = old_impl
+    mesh = pmesh.make_mesh(8)
+    st_sharded = pmesh.shard_voice_tree(state, mesh)
+    ev_sharded = pmesh.shard_voice_tree(events, mesh)
+    new_state, out, mono = pmesh.render_all_sharded(
+        st_sharded, ev_sharded, mesh=mesh, **static)
+    out = np.asarray(out)
 
     # identical per-shard math; only the mix reduction order differs
     np.testing.assert_allclose(out, ref_out, rtol=0, atol=1e-6)
@@ -229,7 +219,7 @@ def test_sharded_granulator_sampler_match_single_device():
         for i in range(2):
             gs, out = gran.render_block(
                 gs, gev, jnp.int32(i * B), sample_rate=SR, block_size=B,
-                smooth_coeff=smoothing_coeff(SR), grain_read="gather")
+                smooth_coeff=smoothing_coeff(SR))
             outs.append(out)
         return jnp.concatenate(outs, axis=-1)
 
@@ -270,8 +260,7 @@ def test_sharded_granulator_sampler_match_single_device():
         outs = []
         for i in range(2):
             ss, out = samp.render_block(
-                ss, sev, jnp.int32(i * B), sample_rate=SR, block_size=B,
-                voice_read="gather")
+                ss, sev, jnp.int32(i * B), sample_rate=SR, block_size=B)
             outs.append(out)
         return jnp.concatenate(outs, axis=-1)
 
@@ -293,16 +282,14 @@ def test_sharded_granulator_sampler_match_single_device():
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 @pytest.mark.slow
 def test_shard_map_full_product_scope():
-    """ONE multi-chip path carries the whole product (VERDICT r4 #2):
-    fused Pallas banks + LFO routes + the sidechained compressor + the full
+    """ONE multi-device path carries the whole product: the instrument
+    banks + LFO routes + the sidechained compressor + the full
     7-effect bus chain + limiter, all inside one shard_map program, equal
     to the single-device render of the identical config.  Routes/sidechain
     resolve their GLOBAL voice ids per-shard (axis_index row masks); the
     sidechain tap adds one [B] psum to the mix reduction.  Two chained
     blocks pin the carried state.  Reference scope: ffi.rs:1043-1380
     (everything in one render)."""
-    from libgooey_tpu.ops import pallas_voice as pv
-
     per_family = {"kick": 8, "snare": 8, "hihat2": 8, "tom2": 8,
                   "bass": 8}
     V = sum(per_family.values())
@@ -353,28 +340,22 @@ def test_shard_map_full_product_scope():
 
     events = [make_events(i) for i in range(2)]
 
-    old_impl = pv.IMPL
-    pv.IMPL = "pallas"   # fused kernels (interpret) on the CPU mesh
-    try:
-        st = state
-        ref_outs = []
-        for ev in events:
-            st, out, _ = eng._render_all_jit(
-                st, {k: jnp.asarray(v) for k, v in ev.items()},
-                fused_banks=True, **static)
-            ref_outs.append(np.asarray(out))
-        ref_state = st
+    st = state
+    ref_outs = []
+    for ev in events:
+        st, out, _ = eng._render_all_jit(
+            st, {k: jnp.asarray(v) for k, v in ev.items()}, **static)
+        ref_outs.append(np.asarray(out))
+    ref_state = st
 
-        mesh = pmesh.make_mesh(8)
-        st2 = pmesh.shard_voice_tree(state, mesh)
-        got_outs = []
-        for ev in events:
-            st2, out, _ = pmesh.render_all_sharded(
-                st2, {k: jnp.asarray(v) for k, v in ev.items()},
-                mesh=mesh, **static)
-            got_outs.append(np.asarray(out))
-    finally:
-        pv.IMPL = old_impl
+    mesh = pmesh.make_mesh(8)
+    st2 = pmesh.shard_voice_tree(state, mesh)
+    got_outs = []
+    for ev in events:
+        st2, out, _ = pmesh.render_all_sharded(
+            st2, {k: jnp.asarray(v) for k, v in ev.items()},
+            mesh=mesh, **static)
+        got_outs.append(np.asarray(out))
 
     for ref, got in zip(ref_outs, got_outs):
         np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6)

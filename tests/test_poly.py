@@ -2,7 +2,7 @@
 
 The oracle replays the bank's exact split-increment mod-1 phase
 (bass_oracle.ExactPhase), so there are no polyBLEP exclusion windows:
-every sample must match to the −80 dBFS bar (VERDICT r3 #4)."""
+every sample must match to the −80 dBFS bar."""
 
 import numpy as np
 

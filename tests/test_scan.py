@@ -86,32 +86,6 @@ def test_nonlinear_scan_shapes():
     assert new_state.shape == (3,)
 
 
-def test_pallas_linrec1_matches_associative():
-    """The Pallas chunked-scan kernel (interpret mode on CPU) agrees with
-    the associative scan to f32 reassociation noise."""
-    from libgooey_tpu.ops import pallas_scan
-
-    rng = np.random.default_rng(3)
-    V, B = pallas_scan.ROW_TILE, 4 * pallas_scan.CHUNK
-    a = jnp.asarray(rng.uniform(0.5, 0.999, (V, B)).astype(np.float32))
-    b = jnp.asarray(rng.standard_normal((V, B)).astype(np.float32))
-    y0 = jnp.asarray(rng.standard_normal(V).astype(np.float32))
-    assert pallas_scan.supported(a, y0)
-    ref = gscan.linrec1(a, b, y0)
-    got = pallas_scan.linrec1_pallas(a, b, y0, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=0, atol=1e-5)
-    # the scan.linrec1 opt-in dispatch routes through the same kernel
-    gscan.USE_PALLAS = True
-    try:
-        # CPU backend: pallas_call without interpret is unsupported; the
-        # dispatch itself must still produce correct values via interpret
-        # only when asked — here we just confirm the flag path is guarded.
-        assert gscan.USE_PALLAS
-    finally:
-        gscan.USE_PALLAS = False
-
-
 def test_phase_cumsum_reset_exactness_and_semantics():
     """phase_cumsum_reset matches the f64 serial recurrence to ~1e-7 cycles
     even at high pitch (a raw tree cumsum rounds at eps(inc*B) per level),

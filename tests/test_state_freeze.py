@@ -1,4 +1,4 @@
-"""Masked-branch state-freeze parity (VERDICT r3 #5).
+"""Masked-branch state-freeze parity.
 
 The reference's bypass paths are early returns that FREEZE all DSP state
 (`saturation.rs:230-232`, `waveshaper.rs:55-57`, `feedback_waveshaper.rs:

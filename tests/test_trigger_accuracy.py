@@ -3,7 +3,7 @@
 The reference applies sequenced triggers at their exact in-block sample
 offsets on the product (FFI) path (ffi.rs:1152-1205) and retriggers voices
 per-sample, so several hits can land in one 512-sample block.  These tests
-pin both behaviors on the TPU rebuild:
+pin both behaviors on the JAX rebuild:
 
 * GooeyEngine sequenced swing onsets land at the exact samples the
   sequencer reports (mirrors tests/sequencer_armed_start.rs swing spans);

@@ -1,6 +1,6 @@
 """Device WSOLA search vs the host (numpy) oracle: identical hop choices.
 
-VERDICT r3 #3: the coarse-to-fine NCC search runs on device as two
+The coarse-to-fine NCC search runs on device as two
 fixed-size einsums + argmax (ops/wsola_search.py), returning candidate
 *indices* that the host maps back through its own f64 ranges — so when the
 indices agree, the whole downstream hop plan is bit-identical.  These

@@ -5,7 +5,7 @@ libgooey_tpu.instruments.tom.render_block: tonal sine + additive-triangle
 punch at 3f, live pitch-envelope sweep, latched amp envelope with 0.5+0.5v
 velocity decay scale.  The additive triangle replays the bank's exact
 Chebyshev recurrence (ops.osc.triangle_additive) so the comparison is
-pointwise.  The bank must agree to <=1e-4 (VERDICT r3 #6).
+pointwise.  The bank must agree to <=1e-4.
 """
 
 from __future__ import annotations
